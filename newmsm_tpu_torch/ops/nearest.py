@@ -1,0 +1,451 @@
+"""Batched nearest-triangle search on (deformed) sphere meshes.
+
+Port of newmsm_tpu/ops/nearest.py, the bulk replacement for the reference
+Octree (octree.cpp:156-214):
+
+  * pristine icosphere targets: analytic point location by descending the
+    4-way subdivision tree (`_locate_pristine_soa`, the plain twin of the
+    hand-written CUDA kernel in ops/locate.py), plus barycentric weights;
+  * general (deformed) meshes: exact nearest vertex (dense distance scores
+    over a coarse prefix + 3-ring descent refinement, or a dense re-rank),
+    then the reference's containment test over that vertex's 2-ring faces,
+    with the vertex-distance fallback of octree.cpp:194-208.
+
+Host-side table builders are numpy copies of the JAX package's (they may
+call the native C++ extension, as the originals do).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from ..core import spherical as sph
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchTables:
+    """Device-resident target-mesh tables for nearest search."""
+    coords: torch.Tensor      # (N,3) f32
+    faces: torch.Tensor       # (T,3) i64
+    ring_faces: torch.Tensor  # (N,C) i64 faces within the 2-ring of a vertex
+    ring_verts: torch.Tensor  # (N,C,3) i64 faces[ring_faces]
+    descent: tuple = ()       # per refinement step an (n_r, Cd) i64 table of
+    #                           level-(r+1) candidate vertex ids; empty for
+    #                           non-icosphere meshes -> dense search
+    pristine_res: int = -1    # >=0 when coords ARE the pristine icosphere
+
+
+# --------------------------------------------------------------------------
+# host table builders (numpy)
+# --------------------------------------------------------------------------
+
+def _native():
+    from newmsm_tpu.native import _geometry
+    return _geometry
+
+
+@functools.lru_cache(maxsize=None)
+def _icosphere_ring_faces(resolution: int) -> np.ndarray:
+    from newmsm_tpu.core.icosphere import icosphere
+    ico = icosphere(resolution)
+    return _build_ring_faces(ico.nbr_idx, ico.tri_idx)
+
+
+def _build_ring_faces(nbr_idx: np.ndarray, tri_idx: np.ndarray) -> np.ndarray:
+    """Faces incident to a vertex or to any of its neighbours ("2-ring"
+    faces), padded with the first entry. Native builder when available."""
+    geo = _native()
+    if geo is not None:
+        return geo.ring2_faces(np.ascontiguousarray(nbr_idx, np.int32),
+                               np.ascontiguousarray(tri_idx, np.int32))
+    rows = []
+    for v in range(nbr_idx.shape[0]):
+        fs = [int(t) for t in tri_idx[v] if t >= 0]
+        seen = set(fs)
+        for a in nbr_idx[v]:
+            if a < 0:
+                continue
+            for t in tri_idx[a]:
+                if t >= 0 and int(t) not in seen:
+                    seen.add(int(t))
+                    fs.append(int(t))
+        rows.append(fs)
+    return _pad_rows(rows, [r[0] for r in rows])
+
+
+def _pad_rows(rows, pads) -> np.ndarray:
+    out = np.empty((len(rows), max(len(r) for r in rows)), np.int32)
+    for v, (r, p) in enumerate(zip(rows, pads)):
+        out[v, : len(r)] = r
+        out[v, len(r):] = p
+    return out
+
+
+def _bfs_ball(nbr: np.ndarray, n_centres: int, depth: int) -> np.ndarray:
+    """(n_centres, C) vertices within `depth` edges of each centre (sorted,
+    self-padded). Native builder when available."""
+    geo = _native()
+    if geo is not None:
+        return geo.bfs_ball(np.ascontiguousarray(nbr, np.int32), n_centres,
+                            depth)
+    rows = []
+    for v in range(n_centres):
+        seen = {v}
+        frontier = [v]
+        for _ in range(depth):
+            nxt = []
+            for a in frontier:
+                for b in nbr[a]:
+                    if b >= 0 and int(b) not in seen:
+                        seen.add(int(b))
+                        nxt.append(int(b))
+            frontier = nxt
+        rows.append(sorted(seen))
+    return _pad_rows(rows, range(n_centres))
+
+
+_DESCENT_BASE_RES = 2      # dense stage over the first 162 vertices
+_DESCENT_DEPTH = 3         # BFS ring depth of each refinement candidate set
+
+
+@functools.lru_cache(maxsize=None)
+def _descent_table(level: int) -> np.ndarray:
+    """(n_{level-1}, Cd) candidates for refining a nearest-vertex result from
+    icosphere level-1 to `level`: fine vertices within `_DESCENT_DEPTH`
+    edges of each coarse vertex (coarse ids are a prefix of fine ids)."""
+    from newmsm_tpu.core.icosphere import icosphere
+    return _bfs_ball(icosphere(level).nbr_idx, icosphere(level - 1).nvertices,
+                     _DESCENT_DEPTH)
+
+
+@functools.lru_cache(maxsize=1)
+def _base_face_tables():
+    """Base-face corner coords (20,3,3) in face vertex order, and inward
+    edge normals (20,3,3): unit u lies in base face f iff all three
+    dot(u, n) >= 0."""
+    from newmsm_tpu.core.icosphere import icosphere
+    ico0 = icosphere(0)
+    c = ico0.coords[ico0.faces]
+    n01 = np.cross(c[:, 0], c[:, 1])
+    n12 = np.cross(c[:, 1], c[:, 2])
+    n20 = np.cross(c[:, 2], c[:, 0])
+    nrm = np.stack([n01, n12, n20], axis=1)
+    opp = np.stack([c[:, 2], c[:, 0], c[:, 1]], axis=1)
+    sgn = np.sign(np.sum(nrm * opp, axis=-1, keepdims=True))
+    nrm = nrm * sgn / np.linalg.norm(nrm, axis=-1, keepdims=True)
+    return (np.ascontiguousarray(c, np.float32),
+            np.ascontiguousarray(nrm, np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _base_tables_on(device: torch.device):
+    bc, bn = _base_face_tables()
+    return (torch.from_numpy(bc).to(device), torch.from_numpy(bn).to(device))
+
+
+# --------------------------------------------------------------------------
+# pristine tier: the plain twin of the locate kernel (ops/locate.py)
+# --------------------------------------------------------------------------
+
+def _cross3(a, b):
+    return (a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
+
+
+def _dot3(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _sub3(a, b):
+    return (a[0] - b[0], a[1] - b[1], a[2] - b[2])
+
+
+def _child_select_soa(u, va, vb, vc, m01, m12, m02):
+    """Subdivision child of triangle (va,vb,vc) containing unit point u:
+    the running first-max over the 4 children (centre, corner-a, corner-b,
+    corner-c) of the minimum normalised inward distance to 6 shared planes
+    (robust for exactly-on-boundary queries, see the JAX original). All
+    args are (x,y,z) component tuples. Returns child code k (int64):
+    0 centre, 1 corner v0, 3 corner v1, 2 corner v2, the 4f+k emission
+    order of icosphere._retessellate. k is computed once and consumed by
+    both the face id and the corner update."""
+    def sdist(n, r):
+        du = _dot3(u, n) * torch.rsqrt(_dot3(n, n))
+        return torch.where(_dot3(r, n) >= 0, du, -du)
+
+    s1 = sdist(_cross3(m01, m12), m02)
+    s2 = sdist(_cross3(m12, m02), m01)
+    s3 = sdist(_cross3(m02, m01), m12)
+    sab = sdist(_cross3(va, vb), vc)
+    sbc = sdist(_cross3(vb, vc), va)
+    sca = sdist(_cross3(vc, va), vb)
+
+    best = torch.minimum(s1, torch.minimum(s2, s3))
+    s_a = torch.minimum(sca, torch.minimum(sab, -s3))
+    s_b = torch.minimum(sab, torch.minimum(sbc, -s1))
+    s_c = torch.minimum(sbc, torch.minimum(sca, -s2))
+
+    k = torch.zeros(best.shape, dtype=torch.int64, device=best.device)
+    for kk, s in ((1, s_a), (3, s_b), (2, s_c)):
+        upd = s > best
+        best = torch.where(upd, s, best)
+        k = torch.where(upd, torch.full_like(k, kk), k)
+    return k
+
+
+def _locate_pristine_soa(ux, uy, uz, res: int):
+    """Gather-free point location on a PRISTINE icosphere: descend the 4-way
+    subdivision tree with midpoint math (children of face f are emitted at
+    4f+k, icosphere._retessellate).
+
+    ux/uy/uz: (...) unit query components. Returns (fid (...) int64, and the
+    face's 3 corners in face vertex order as (x,y,z) tuples, unit radius)."""
+    bc, bn = _base_tables_on(ux.device)
+    shape = ux.shape
+    u = tuple(a.reshape(-1) for a in (ux, uy, uz))
+
+    # base face: first-max over the 20 faces of min-over-3-edges inward dot
+    smin = None
+    for e in range(3):
+        s = (u[0][:, None] * bn[:, e, 0] + u[1][:, None] * bn[:, e, 1]
+             + u[2][:, None] * bn[:, e, 2])                      # (Q,20)
+        smin = s if smin is None else torch.minimum(smin, s)
+    fid = torch.argmax(smin, dim=1)
+    c = bc[fid]                                                  # (Q,3,3)
+    va, vb, vc = ((c[:, i, 0], c[:, i, 1], c[:, i, 2]) for i in range(3))
+
+    def mid(a, b):
+        x, y, z = a[0] + b[0], a[1] + b[1], a[2] + b[2]
+        inv = torch.rsqrt(x * x + y * y + z * z)
+        return x * inv, y * inv, z * inv
+
+    for _ in range(res):
+        m01, m12, m02 = mid(va, vb), mid(vb, vc), mid(va, vc)
+        # k=0 centre (m01,m12,m02), k=1 corner v0 (m02,v0,m01),
+        # k=2 corner v2 (m12,v2,m02), k=3 corner v1 (m01,v1,m12)
+        k = _child_select_soa(u, va, vb, vc, m01, m12, m02)
+        fid = 4 * fid + k
+        is_a, is_b, is_c = k == 1, k == 3, k == 2
+
+        def sel4(a_val, b_val, c_val, ctr):
+            return torch.where(is_a, a_val, torch.where(
+                is_b, b_val, torch.where(is_c, c_val, ctr)))
+
+        na = tuple(sel4(m02[i], m01[i], m12[i], m01[i]) for i in range(3))
+        nb = tuple(sel4(va[i], vb[i], vc[i], m12[i]) for i in range(3))
+        nc = tuple(sel4(m01[i], m12[i], m02[i], m02[i]) for i in range(3))
+        va, vb, vc = na, nb, nc
+
+    rs = lambda t: tuple(a.reshape(shape) for a in t)   # noqa: E731
+    return fid.reshape(shape), rs(va), rs(vb), rs(vc)
+
+
+def _bary_weights_soa(u, va, vb, vc):
+    """Barycentric weights of unit point u wrt unit triangle (va,vb,vc),
+    calc_barycentric_weights (triangle.cpp:124-143): scale u along its ray
+    onto the triangle plane, then sub-areas. Returns (w0,w1,w2)."""
+    n = _cross3(_sub3(vc, va), _sub3(vb, va))
+    denom = _dot3(n, u)
+    denom = torch.where(denom.abs() > 0, denom, torch.ones_like(denom))
+    si = _dot3(n, va) / denom
+    pp = (u[0] * si, u[1] * si, u[2] * si)
+
+    def area(a, b, c):
+        cr = _cross3(_sub3(b, a), _sub3(c, a))
+        return 0.5 * torch.sqrt(_dot3(cr, cr))
+
+    aa = area(pp, vb, vc)
+    ab = area(pp, va, vc)
+    ac = area(pp, va, vb)
+    total = aa + ab + ac
+    total = torch.where(total > 0, total, torch.ones_like(total))
+    return aa / total, ab / total, ac / total
+
+
+def locate_bary_soa(px, py, pz, pristine_res: int):
+    """Locate + barycentric weights on a pristine icosphere: (fid, w0, w1,
+    w2), shaped like px. CUDA tensors go through the hand-written kernel,
+    CPU tensors through its plain twin (ops/locate.py)."""
+    from .locate import locate_bary
+    return locate_bary(px.contiguous(), py.contiguous(), pz.contiguous(),
+                       pristine_res)
+
+
+def resample_pristine_soa(px, py, pz, tables: SearchTables, data):
+    """Pristine-icosphere resample: locate + barycentric weights + face-major
+    data gather (metric_resample's inner loop, resampler.cpp:30-70, for the
+    undeformed-target case). px/py/pz (...), data (D,N) -> (..., D)."""
+    shape = px.shape
+    fid, w0, w1, w2 = (a.reshape(-1) for a in locate_bary_soa(
+        px, py, pz, tables.pristine_res))
+    vals = data.T[tables.faces[fid]]                   # (Q,3,D)
+    out = (vals[:, 0] * w0[:, None] + vals[:, 1] * w1[:, None]
+           + vals[:, 2] * w2[:, None])
+    return out.reshape(shape + (data.shape[0],))
+
+
+# --------------------------------------------------------------------------
+# general tier
+# --------------------------------------------------------------------------
+
+# Maximum per-edge stretch under which the depth-3 descent ball still
+# contains the true nearest vertex; beyond it the exact dense search runs.
+_DESCENT_MAX_STRETCH = 1.6
+
+
+def _max_edge_stretch(coords: np.ndarray, faces: np.ndarray,
+                      pristine: np.ndarray) -> float:
+    e = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]])
+    d_def = np.linalg.norm(coords[e[:, 0]] - coords[e[:, 1]], axis=1)
+    d_pri = np.linalg.norm(pristine[e[:, 0]] - pristine[e[:, 1]], axis=1)
+    r = d_def / np.maximum(d_pri, 1e-30)
+    return float(max(r.max(), (1.0 / np.maximum(r, 1e-30)).max()))
+
+
+@functools.lru_cache(maxsize=None)
+def _icosphere_tables_on(res: int, device: torch.device, with_descent: bool):
+    """Topology tensors of the level-`res` icosphere on `device` (cached:
+    every warp step rebuilds SearchTables for the same topology)."""
+    from newmsm_tpu.core.icosphere import icosphere
+    faces = icosphere(res).faces.astype(np.int64)
+    ring = _icosphere_ring_faces(res).astype(np.int64)
+    descent = tuple(
+        torch.from_numpy(_descent_table(r).astype(np.int64)).to(device)
+        for r in range(_DESCENT_BASE_RES + 1, res + 1)) if with_descent else ()
+    return (torch.from_numpy(faces).to(device),
+            torch.from_numpy(ring).to(device),
+            torch.from_numpy(faces[ring]).to(device), descent)
+
+
+def build_tables(coords, faces, tri_idx=None, device="cpu") -> SearchTables:
+    """Host-side table prep (topology; coordinates may be deformed)."""
+    from newmsm_tpu.core.icosphere import (_NVERT_TO_RES, build_adjacency,
+                                           icosphere)
+    device = torch.device(device)
+    coords = np.asarray(coords)
+    faces = np.asarray(faces, dtype=np.int32)
+    coords_t = torch.as_tensor(coords, dtype=torch.float32).to(device)
+
+    res = _NVERT_TO_RES.get(coords.shape[0])
+    if res is not None and np.array_equal(icosphere(res).faces, faces):
+        rad = float(np.linalg.norm(coords[0]))
+        pristine = icosphere(res).coords * rad
+        # deformation gate: descent refinement is only Voronoi-exact for
+        # bounded warps; heavily deformed meshes take the dense path
+        with_descent = (res > _DESCENT_BASE_RES and _max_edge_stretch(
+            coords, faces, pristine) <= _DESCENT_MAX_STRETCH)
+        faces_t, ring_t, rv_t, descent = _icosphere_tables_on(
+            res, device, with_descent)
+        pristine_res = res if np.abs(coords - pristine).max() < 1e-4 * rad \
+            else -1
+        return SearchTables(coords_t, faces_t, ring_t, rv_t, descent,
+                            pristine_res)
+    nbr_idx, _, ti, _ = build_adjacency(faces, coords.shape[0])
+    ring = _build_ring_faces(nbr_idx, ti).astype(np.int64)
+    faces64 = faces.astype(np.int64)
+    return SearchTables(
+        coords=coords_t,
+        faces=torch.from_numpy(faces64).to(device),
+        ring_faces=torch.from_numpy(ring).to(device),
+        ring_verts=torch.from_numpy(faces64[ring]).to(device))
+
+
+def _select(qc, cand_tri, tv, vc, rad):
+    """Reference octree choice among candidates. qc (c,3); cand_tri (c,C);
+    tv (c,C,3) vertex ids; vc (c,C,3,3) coords.
+    Returns (tri (c,), tv_sel (c,3), vc_sel (c,3,3))."""
+    v0, v1, v2 = vc[..., 0, :], vc[..., 1, :], vc[..., 2, :]
+    qx = qc[:, None, :]
+    pp = sph.project_to_plane(qx, v0, v1, v2)
+    contained = sph.point_in_triangle_relative(pp, v0, v1, v2)
+    d_in = sph.dist_to_triangle_boundary(pp, v0, v1, v2)
+    d_in = torch.where(contained, d_in,
+                       torch.full_like(d_in, torch.finfo(qc.dtype).max))
+    best_in = torch.argmin(d_in, dim=1)
+    found = contained.any(dim=1)
+
+    # tier-3 fallback: geodesic distance to candidate triangle vertices
+    def vdist(v):
+        chord = torch.linalg.norm(qx - v, dim=-1)
+        return 2.0 * rad * torch.arcsin((chord / (2.0 * rad)).clamp(-1.0, 1.0))
+
+    d_fb = torch.minimum(vdist(v0), torch.minimum(vdist(v1), vdist(v2)))
+    best_fb = torch.argmin(d_fb, dim=1)
+    sel = torch.where(found, best_in, best_fb)            # computed once
+    rows = torch.arange(qc.shape[0], device=qc.device)
+    return cand_tri[rows, sel], tv[rows, sel], vc[rows, sel]
+
+
+def _search(query, tables: SearchTables, chunk: int = 4096,
+            rad: float = 100.0):
+    """Full search: (tri (Q,), tv (Q,3), vc (Q,3,3)).
+
+    Pristine icosphere targets: the locate kernel's face id, with the
+    corners read from the table coordinates. Otherwise: nearest vertex
+    (dense scores over the coarse prefix + descent refinement, or a dense
+    exact re-rank), then the 2-ring containment choice."""
+    q = query.to(tables.coords.dtype)
+    coords = tables.coords
+
+    if tables.pristine_res >= 0:
+        fid = locate_bary_soa(q[:, 0], q[:, 1], q[:, 2],
+                              tables.pristine_res)[0].long()
+        tv = tables.faces[fid]
+        return fid, tv, coords[tv]
+
+    rc = coords[tables.ring_verts]                     # (N,C,3,3)
+    n_dense = tables.descent[0].shape[0] if tables.descent else coords.shape[0]
+    dense_c = coords[:n_dense]
+    sq = (dense_c * dense_c).sum(1)
+    ref_coords = tuple(coords[d] for d in tables.descent)   # (n_r,Cd,3)
+
+    out = []
+    for s in range(0, q.shape[0], chunk):
+        qc = q[s:s + chunk]
+        # the score form carries ~1e-3 absolute f32 noise at RAD=100, so
+        # every path below re-ranks with EXACT squared distances
+        scores = 2.0 * (qc @ dense_c.T) - sq[None, :]
+        nn = torch.argmax(scores, dim=1)
+        rows = torch.arange(qc.shape[0], device=q.device)
+        for d, cc_tab in zip(tables.descent, ref_coords):
+            cand = d[nn]                               # (c,Cd)
+            d2 = ((qc[:, None, :] - cc_tab[nn]) ** 2).sum(-1)
+            nn = cand[rows, torch.argmin(d2, dim=1)]
+        if not tables.descent:
+            cand = tables.ring_verts[nn].reshape(qc.shape[0], -1)  # (c,3C)
+            d2 = ((qc[:, None, :] - coords[cand]) ** 2).sum(-1)
+            nn = cand[rows, torch.argmin(d2, dim=1)]
+        out.append(_select(qc, tables.ring_faces[nn], tables.ring_verts[nn],
+                           rc[nn], rad))
+    return tuple(torch.cat(parts) for parts in zip(*out))
+
+
+def nearest_triangle(query, tables: SearchTables, chunk: int = 4096,
+                     rad: float = 100.0):
+    """Closest-triangle id per query point. query (Q,3) -> (Q,) int64."""
+    return _search(query, tables, chunk=chunk, rad=rad)[0]
+
+
+def closest_vertex(query, tables: SearchTables, chunk: int = 4096,
+                   rad: float = 100.0):
+    """get_closest_vertex_ID (octree.cpp:216-233): euclidean-nearest vertex
+    of the closest triangle (NOT the globally nearest vertex)."""
+    _, tv, vc = _search(query, tables, chunk=chunk, rad=rad)
+    d = torch.linalg.norm(vc - query[:, None, :].to(vc.dtype), dim=-1)
+    return tv[torch.arange(tv.shape[0], device=tv.device),
+              torch.argmin(d, dim=1)]
+
+
+def barycentric_coords(query, tables: SearchTables, chunk: int = 4096,
+                       rad: float = 100.0):
+    """Closest triangle + barycentric weights per query
+    (get_barycentric_weights, resampler.cpp:142-167).
+    Returns (vertex_ids (Q,3) int64, weights (Q,3))."""
+    _, tv, vc = _search(query, tables, chunk=chunk, rad=rad)
+    w = sph.barycentric_weights(vc[:, 0], vc[:, 1], vc[:, 2],
+                                query.to(vc.dtype))
+    return tv, w
