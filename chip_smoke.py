@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (newmsm_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--warm-runs N]
 
 Phases, each printing its own lines; any failure exits non-zero and prints
 no result line:
@@ -9,6 +9,7 @@ no result line:
   1. device   require CUDA; print the card's name and power limit
               (nvidia-smi) and the torch / CUDA versions;
   2. build    compile the locate kernel (csrc/locate_bary.cu) with nvcc;
+              print its ptxas line (registers, spills) and resident grid;
   3. kernel   the kernel against its plain PyTorch version on the card:
               2^20 random directions plus every vertex of ico-res, res in
               {0,2,4,6}; row sums, reconstructed positions, vertex mass and
@@ -16,15 +17,20 @@ no result line:
   4. main     the pairwise strain-registration path through the CLI
               (config_standard_MSM_strain, --it cut to 10,3,3,3) on an ico-6
               synthetic subject; checks outputs, folds, the sulc CC gain and
-              that the path went through the kernel;
-  5. timing   CUDA-event times of the kernel and its plain version at the
-              shape of the main path's last locate call.
+              that the path went through the kernel; prints the first
+              set-up seconds of each level (the cold host table builds);
+  5. timing   the kernel and its plain version at the shape of the main
+              path's largest locate call: windows of back-to-back launches
+              between CUDA events (median and spread), the SM clock and
+              power sampled under the load, the roofline bound and the
+              issue-slot bound from the SASS instruction count.
 
 The line before the last is a JSON summary of the kernels; the last line
-is {"ok": true, "device": {...}}. Uses no JAX.
+is {"ok": true, "device": {...}}. Imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -88,33 +94,22 @@ def phase_device(torch):
 
 
 def phase_build():
-    from newmsm_tpu_torch.ops import locate
+    from newmsm_tpu_torch.ops import _build, locate
     t0 = time.perf_counter()
     locate._library()
     print(f"build: {locate.SOURCE} ready (nvcc at first use) in "
           f"{time.perf_counter() - t0:.2f} s")
-
-
-def _cuda_ms(torch, fn, warmup=3, reps=9):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    name = f"{locate.KERNEL}ILi{MAIN_RES}E"
+    print(f"build: ptxas, res {MAIN_RES} kernel: "
+          f"{_build.ptxas_usage(locate.SOURCE, name)}")
+    print(f"build: grid capped at {locate.resident_blocks(MAIN_RES, 'cuda')} "
+          f"resident blocks (occupancy x SMs)")
 
 
 def phase_kernel(torch):
     """K1 against its plain version on the card (tolerances of the JAX
     package's on-device probe, pallas_locate.py:149-158)."""
-    from newmsm_tpu.core.icosphere import icosphere
+    from newmsm_tpu_torch.core.icosphere import icosphere
     from newmsm_tpu_torch.ops import locate
 
     dev = torch.device("cuda")
@@ -169,30 +164,54 @@ def phase_kernel(torch):
 
 
 def phase_timing(torch, n_queries: int, res: int):
-    """CUDA-event times of the kernel and its plain version on one locate
-    call of the main path's shape (median of 9 after 3 warm-ups)."""
-    from newmsm_tpu_torch.ops import locate
-    g = torch.Generator().manual_seed(1)
-    q = torch.randn((n_queries, 3), generator=g).to("cuda")
-    px, py, pz = (q[:, i].contiguous() for i in range(3))
-    ms = _cuda_ms(torch, lambda: locate.locate_bary(px, py, pz, res))
-    plain_ms = _cuda_ms(torch, lambda: locate.locate_bary_reference(
-        px, py, pz, res))
-    print(f"kernel time res {res}, {n_queries} queries: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-    return ms, plain_ms
+    """Times of the kernel (windows of 200 launches after 50 warm-ups) and
+    of its plain version (windows of 5) on one locate call of the main
+    path's shape, beside the roofline and issue-slot bounds."""
+    from newmsm_tpu_torch.ops import locate, locate_bench as lb
+    dev = torch.device("cuda", torch.cuda.current_device())
+    px, py, pz = lb.random_queries(n_queries, dev)
+    fn = locate._library().locate_bary_launch
+    tables = locate.kernel_tables(dev)
+    fid = torch.empty(n_queries, dtype=torch.int32, device=dev)
+    w0, w1, w2 = (torch.empty_like(px) for _ in range(3))
+    k = lb.time_launches(lambda: locate.launch(fn, px, py, pz, res, tables,
+                                               fid, w0, w1, w2))
+    plain = lb.time_launches(
+        lambda: locate.locate_bary_reference(px, py, pz, res), windows=3,
+        launches=5, warmup=2)
+    static = lb.static_profile(locate.SOURCE, res, n_queries, k)
+    roof = lb.roofline(res, n_queries)
+    print(f"kernel time res {res}, {n_queries} queries: kernel "
+          f"{k['ms']:.4f} ms (windows {[round(x, 4) for x in k['windows_ms']]}"
+          f", ms_spread {k['ms_spread']:.3f}, {k['rounds']} rounds), plain "
+          f"{plain['ms']:.4f} ms (ms_spread {plain['ms_spread']:.3f})")
+    print(f"clock samples under the kernel load (SM MHz, W): "
+          f"{k['clock_samples_mhz_w']}")
+    print(f"bound: {roof['bound_ms']:.5f} ms by {roof['bound_by']} "
+          f"({lb.flops_per_query(res)} flops and {lb.BYTES_PER_QUERY} bytes "
+          f"a query; bytes alone {roof['bytes_ms']:.5f} ms), share "
+          f"{roof['bound_ms'] / k['ms']:.3f}")
+    check(static["issue_slot_ms"] is not None,
+          "no SM clock sample was taken under the kernel load")
+    print(f"issue-slot bound: {static['sass_instructions']} SASS "
+          f"instructions a query at {static['sm_mhz']:.0f} MHz -> "
+          f"{static['issue_slot_ms']:.5f} ms, share "
+          f"{static['issue_slot_ms'] / k['ms']:.3f}")
+    print(f"SASS by opcode: {static['sass_opcodes']}")
+    return k, plain, roof
 
 
 def _cc(a, b) -> float:
     return float(np.corrcoef(a, b)[0, 1])
 
 
-def phase_main(torch, workdir):
-    """The port's main path through its CLI on the card."""
-    from newmsm_tpu.core import io as mio
-    from newmsm_tpu.core.mesh import Mesh
-    from newmsm_tpu.eval.synth import synth_cohort
+def phase_main(torch, workdir, warm_runs=0):
+    """The port's main path through its CLI on the card; `warm_runs` more
+    runs in the same process afterwards, timed only."""
     from newmsm_tpu_torch import cli
+    from newmsm_tpu_torch.core import io as mio
+    from newmsm_tpu_torch.core.mesh import Mesh
+    from newmsm_tpu_torch.eval.synth import synth_cohort
     from newmsm_tpu_torch.ops import locate
     from newmsm_tpu_torch.ops.unfold import count_folds
 
@@ -220,17 +239,27 @@ def phase_main(torch, workdir):
     print(f"reduced: --it={SMOKE_ITERS} (config_standard_MSM_strain has "
           f"--it={STANDARD_ITERS}); nothing else cut")
 
+    def run_cli(prefix, metrics_path):
+        t0 = time.perf_counter()
+        rc = cli.main(["--inmesh", paths["in"][0], "--refmesh",
+                       paths["ref"][0], "--indata", paths["in"][1],
+                       "--refdata", paths["ref"][1], "-o", prefix, "--conf",
+                       conf, "--metrics", metrics_path, "--device", "cuda"])
+        torch.cuda.synchronize()
+        check(rc == 0, f"cli returned {rc}")
+        return time.perf_counter() - t0
+
     locate.LAUNCHES = 0
-    t0 = time.perf_counter()
-    rc = cli.main(["--inmesh", paths["in"][0], "--refmesh", paths["ref"][0],
-                   "--indata", paths["in"][1], "--refdata", paths["ref"][1],
-                   "-o", out, "--conf", conf, "--metrics", metrics,
-                   "--device", "cuda"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = run_cli(out, metrics)
     launches = locate.LAUNCHES
-    check(rc == 0, f"cli returned {rc}")
     print(f"main: cli wall {wall:.2f} s, locate_bary launches {launches}")
+    if warm_runs:
+        warm = [run_cli(os.path.join(workdir, f"warm{i}_"),
+                        os.path.join(workdir, f"warm{i}.jsonl"))
+                for i in range(warm_runs)]
+        print(f"main: {warm_runs} more runs in this process: "
+              f"{[round(w, 4) for w in warm]} s, median "
+              f"{float(np.median(warm)):.4f} s")
 
     events = [json.loads(line) for line in open(metrics)]
     for e in events:
@@ -239,15 +268,24 @@ def phase_main(torch, workdir):
     warp = {(e["level"], e["iter"]): e["warp_s"] for e in events
             if e["event"] == "warp"}
     energies = []
+    n_queries = 0
+    first_setup = {}
+    last_level = max(e["level"] for e in events if e["event"] == "iter")
     for e in events:
         if e["event"] == "iter":
-            # one locate call: K control points x lchunk(4) labels x pmax
-            n_queries = e["cps"] * min(4, e["labels"]) * e["pmax"]
+            if e["level"] == last_level:
+                # the largest locate call at MAIN_RES: K control points x
+                # lchunk(4) labels x pmax patch slots
+                n_queries = max(n_queries,
+                                e["cps"] * min(4, e["labels"]) * e["pmax"])
+            first_setup.setdefault(e["level"], e["setup_s"])
             energies.append(e["energy"])
             print(f"iter level {e['level']} it {e['iter']}: energy "
                   f"{e['energy']:.6f} setup {e['setup_s']} s unary "
                   f"{e['unary_s']} s fusion {e['fusion_s']} s warp "
                   f"{warp.get((e['level'], e['iter']), 'n/a')} s")
+    print("first set-up seconds of each level (cold host table builds): "
+          + ", ".join(f"level {lv}: {t}" for lv, t in first_setup.items()))
     check(launches > 0, "the main path never launched the locate kernel")
     check(energies and all(np.isfinite(energies)),
           f"energies not finite: {energies}")
@@ -269,7 +307,12 @@ def phase_main(torch, workdir):
     return launches, n_queries
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--warm-runs", type=int, default=0,
+                    help="after the main path, time this many more runs of "
+                         "it in the same process (tables cached)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -278,20 +321,19 @@ def main() -> int:
     import newmsm_tpu_torch  # noqa: F401  (fails outside the repo)
 
     phase_device(torch)
-    t0 = time.perf_counter()
-    import newmsm_tpu.native as native
-    print(f"set-up: native host extension imported in "
-          f"{time.perf_counter() - t0:.2f} s (available: "
-          f"{native.HAVE_NATIVE})")
     phase_build()
     max_err = phase_kernel(torch)
     with tempfile.TemporaryDirectory() as workdir:
-        launches, n_queries = phase_main(torch, workdir)
-    ms, plain_ms = phase_timing(torch, n_queries, MAIN_RES)
+        launches, n_queries = phase_main(torch, workdir, args.warm_runs)
+    k, plain, roof = phase_timing(torch, n_queries, MAIN_RES)
+    # library_ms: no single PyTorch call computes point location on a
+    # subdivision tree plus barycentric weights
     print(json.dumps({"kernels": [{
         "name": "locate_bary", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}]}))
+        "max_abs_err": max_err, "ms": k["ms"], "plain_ms": plain["ms"],
+        "bound_ms": roof["bound_ms"], "bound_by": roof["bound_by"],
+        "library_ms": None, "ms_spread": k["ms_spread"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

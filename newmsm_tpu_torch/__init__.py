@@ -6,17 +6,21 @@ icosphere locate, ``newmsm_tpu/ops/pallas_locate.py``) written by hand in
 CUDA C++ for Hopper (``csrc/locate_bary.cu``). Layout mirrors the JAX
 package, so every ported module sits at the same relative path:
 
-  core/      spherical math (host topology is reused from newmsm_tpu.core)
+  core/      spherical math; host topology (icosphere, mesh) and file I/O
   ops/       nearest-triangle search + the locate kernel's wrapper,
              resampling, smoothing, strain, unfolding, similarity
   reg/       featurespace, discrete model, cost volumes, fusion optimiser,
              rigid alignment, the pairwise multiresolution driver
+  eval/      synthetic cohorts (the smoke run's and the tests' input)
   cli.py     `newmsm`-compatible command line with a --device flag
 
-The port imports torch and numpy and never jax: the JAX-free host modules
-of newmsm_tpu (core.icosphere, core.mesh, core.io, reg.config,
-reg.sampling_grid, reg.optimise.coloring, eval.synth, native) are reused,
-everything else is ported.
+The port stands alone: it imports torch, numpy, scipy and the standard
+library, never jax and nothing of newmsm_tpu. The host modules it needs
+(core.icosphere, core.mesh, core.io, reg.config, reg.sampling_grid,
+reg.optimise.coloring, eval.synth) are its own copies, with the host
+tables built by whole-array numpy / scipy.sparse (no compiled host
+extension). Every public function that takes `device` defaults to cuda
+(`resolve_device`) and raises without a card; pass device="cpu" for the CPU.
 """
 import torch
 
@@ -36,11 +40,12 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-def resolve_device(device) -> torch.device:
-    """torch.device for `device`; raises when CUDA is asked for and absent
+def resolve_device(device=None) -> torch.device:
+    """torch.device for `device`, None meaning cuda: the one default of every
+    public function of the port. Raises when CUDA is asked for and absent
     (the port never falls back to the CPU on its own)."""
-    dev = torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+        raise RuntimeError(f"device {str(dev)!r} requested but CUDA is not "
                            "available (pass device='cpu' to run on the CPU)")
     return dev

@@ -55,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def print_config_options():
-    from newmsm_tpu.reg import config as C
+    from .reg import config as C
     print("newmsm configuration parameters (per-level lists are comma separated):")
     for flag in sorted(list(C._LIST_FLAGS) + list(C._SCALAR_FLAGS)
                        + list(C._BOOL_FLAGS) + ["INc"]):

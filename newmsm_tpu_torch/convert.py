@@ -3,9 +3,10 @@
 Each function reads the fields of a newmsm_tpu state object (or any object
 or mapping with the same field names) through ``np.asarray``, so arrays
 from either package, or plain numpy arrays, are accepted, and turns them
-into the port's tensors on `device`: float arrays become float32, integer
-arrays int64, booleans stay bool. Nothing here imports JAX; the tests use
-it to feed both packages identical state.
+into the port's tensors on `device` (None means cuda, as everywhere in the
+port): float arrays become float32, integer arrays int64, booleans stay
+bool. Nothing here imports JAX or the JAX package; the tests use it to feed
+both packages identical state.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from . import resolve_device
+from .core.mesh import Mesh
 from .ops.nearest import SearchTables
 from .reg.costs import LevelTables
 from .reg.optimise.fusion import FusionTables, color_group_tensors
@@ -23,7 +26,7 @@ def _field(src, name):
     return src[name] if isinstance(src, Mapping) else getattr(src, name)
 
 
-def tensor(a, device="cpu") -> torch.Tensor:
+def tensor(a, device=None) -> torch.Tensor:
     """numpy-convertible array -> tensor (float32 / int64 / bool)."""
     a = np.asarray(a)
     if a.dtype == np.bool_:
@@ -32,10 +35,19 @@ def tensor(a, device="cpu") -> torch.Tensor:
         out = torch.from_numpy(a.astype(np.int64))
     else:
         out = torch.from_numpy(a.astype(np.float32))
-    return out.to(device)
+    return out.to(resolve_device(device))
 
 
-def search_tables(src: Any, device="cpu") -> SearchTables:
+def mesh(src: Any) -> Mesh:
+    """newmsm_tpu.core.mesh.Mesh (or any object with coords / faces / data
+    attributes) -> the port's Mesh, arrays copied."""
+    data = getattr(src, "data", None)
+    return Mesh(coords=np.array(src.coords, dtype=np.float64),
+                faces=np.array(src.faces, dtype=np.int32),
+                data=None if data is None else np.array(data, np.float64))
+
+
+def search_tables(src: Any, device=None) -> SearchTables:
     """newmsm_tpu.ops.nearest.SearchTables -> the port's SearchTables."""
     return SearchTables(
         coords=tensor(_field(src, "coords"), device),
@@ -46,7 +58,7 @@ def search_tables(src: Any, device="cpu") -> SearchTables:
         pristine_res=int(_field(src, "pristine_res")))
 
 
-def level_tables(src: Any, device="cpu") -> LevelTables:
+def level_tables(src: Any, device=None) -> LevelTables:
     """newmsm_tpu.reg.costs.LevelTables -> the port's LevelTables (the
     fields of the pairwise regulariser are not carried)."""
     return LevelTables(
@@ -55,18 +67,18 @@ def level_tables(src: Any, device="cpu") -> LevelTables:
            for name in LevelTables._fields if name != "target_tables"})
 
 
-def fusion_tables(src: Any, device="cpu") -> FusionTables:
+def fusion_tables(src: Any, device=None) -> FusionTables:
     """newmsm_tpu.reg.optimise.fusion.FusionTables (triplet path) -> the
     port's FusionTables."""
     return FusionTables(
         groups=color_group_tensors(np.asarray(_field(src, "vgroups")),
                                    np.asarray(_field(src, "vgroup_mask")),
-                                   device),
+                                   resolve_device(device)),
         vert_tri=tensor(_field(src, "vert_tri"), device),
         vert_tri_corner=tensor(_field(src, "vert_tri_corner"), device))
 
 
-def iteration_state(src: Mapping, device="cpu") -> dict:
+def iteration_state(src: Mapping, device=None) -> dict:
     """A model's per-iteration inputs (the dict of
     PairwiseModel.setup_iteration: labels, rotations, patches, weights)
     -> the same dict of tensors."""

@@ -12,11 +12,14 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from . import nearest as _nst
 
 SOURCE = "locate_bary.cu"
+KERNEL = "locate_bary_kernel"     # name of the __global__ template
+MAX_RES = 12                      # the kernel is instantiated for 0..MAX_RES
 LAUNCHES = 0        # kernel launches since the last reset (plain int)
 
 
@@ -30,23 +33,73 @@ def locate_bary_reference(px, py, pz, res: int):
     return fid.to(torch.int32), w0, w1, w2
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    from ._build import load
-    lib = load(SOURCE)
-    fn = lib.locate_bary_launch
+def bind(lib: ctypes.CDLL):
+    """Declare the C interface of a built locate library; returns its
+    launch function."""
     p = ctypes.c_void_p
+    fn = lib.locate_bary_launch
     fn.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_int, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_tables(device: torch.device) -> torch.Tensor:
+def _library() -> ctypes.CDLL:
+    from ._build import load
+    lib = load(SOURCE)
+    bind(lib)
+    lib.locate_bary_resident_blocks.argtypes = [ctypes.c_int]
+    lib.locate_bary_resident_blocks.restype = ctypes.c_int
+    return lib
+
+
+def set_constant_tables(lib: ctypes.CDLL, device) -> None:
+    """Copy the base-face normals into `device`'s constant memory of a
+    built locate library, where its base-face scan reads them."""
+    normals = np.ascontiguousarray(_nst._base_face_tables()[1], np.float32)
+    lib.locate_bary_set_tables.argtypes = [ctypes.c_void_p]
+    lib.locate_bary_set_tables.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        rc = lib.locate_bary_set_tables(normals.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"locate_bary: copying the base tables failed: "
+                           f"CUDA error {rc}")
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_tables(device: torch.device) -> torch.Tensor:
     """Base corners then inward normals, (20,3,3) each, as one flat f32
-    device tensor (the kernel's `tables` argument)."""
+    device tensor (the kernel's `tables` argument, read per thread for the
+    chosen face). The first call for a device also fills that device's
+    constant memory (`set_constant_tables`)."""
+    set_constant_tables(_library(), device)
     bc, bn = _nst._base_tables_on(device)
     return torch.cat([bc.reshape(-1), bn.reshape(-1)]).contiguous()
+
+
+def launch(fn, px, py, pz, res: int, tables, fid, w0, w1, w2) -> None:
+    """One unchecked launch of a bound launch function on px's device and
+    PyTorch's current stream, into preallocated outputs; raises on a CUDA
+    error. Does not count (`locate_bary` does)."""
+    dev = px.device
+    with torch.cuda.device(dev):
+        rc = fn(px.data_ptr(), py.data_ptr(), pz.data_ptr(), px.numel(),
+                int(res), tables.data_ptr(), fid.data_ptr(), w0.data_ptr(),
+                w1.data_ptr(), w2.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"locate_bary kernel launch failed: CUDA error "
+                           f"{rc}")
+
+
+def resident_blocks(res: int, device) -> int:
+    """Blocks the level-`res` kernel's grid is capped at on `device`
+    (occupancy API x SM count)."""
+    with torch.cuda.device(device):
+        n = _library().locate_bary_resident_blocks(int(res))
+    if n <= 0:
+        raise RuntimeError(f"locate_bary: no occupancy for res {res}")
+    return n
 
 
 def locate_bary(px, py, pz, res: int):
@@ -68,19 +121,12 @@ def locate_bary(px, py, pz, res: int):
                              "and shape")
         if not t.is_contiguous():
             raise ValueError(f"locate_bary: {name} must be contiguous")
-    if not 0 <= int(res) <= 12:
+    if not 0 <= int(res) <= MAX_RES:
         raise ValueError(f"locate_bary: resolution {res} out of range")
-    launch = _library()
-    tables = _kernel_tables(dev)
+    fn = _library().locate_bary_launch
+    tables = kernel_tables(dev)
     fid = torch.empty(px.shape, dtype=torch.int32, device=dev)
     w0, w1, w2 = (torch.empty_like(px) for _ in range(3))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(px.data_ptr(), py.data_ptr(), pz.data_ptr(), px.numel(),
-                    int(res), tables.data_ptr(), fid.data_ptr(),
-                    w0.data_ptr(), w1.data_ptr(), w2.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"locate_bary kernel launch failed: CUDA error "
-                           f"{rc}")
+    launch(fn, px, py, pz, res, tables, fid, w0, w1, w2)
     LAUNCHES += 1
     return fid, w0, w1, w2

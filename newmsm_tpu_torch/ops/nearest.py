@@ -11,8 +11,8 @@ Octree (octree.cpp:156-214):
     then the reference's containment test over that vertex's 2-ring faces,
     with the vertex-distance fallback of octree.cpp:194-208.
 
-Host-side table builders are numpy copies of the JAX package's (they may
-call the native C++ extension, as the originals do).
+The host-side tables are built by whole-array numpy / scipy.sparse
+versions of the JAX package's functions (no compiled host extension).
 """
 from __future__ import annotations
 
@@ -21,8 +21,12 @@ import functools
 
 import numpy as np
 import torch
+from scipy import sparse
 
+from .. import resolve_device
 from ..core import spherical as sph
+from ..core.icosphere import (_NVERT_TO_RES, build_adjacency, icosphere,
+                              padded_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,72 +43,55 @@ class SearchTables:
 
 
 # --------------------------------------------------------------------------
-# host table builders (numpy)
+# host tables (numpy / scipy.sparse)
 # --------------------------------------------------------------------------
-
-def _native():
-    from newmsm_tpu.native import _geometry
-    return _geometry
-
 
 @functools.lru_cache(maxsize=None)
 def _icosphere_ring_faces(resolution: int) -> np.ndarray:
-    from newmsm_tpu.core.icosphere import icosphere
     ico = icosphere(resolution)
     return _build_ring_faces(ico.nbr_idx, ico.tri_idx)
 
 
 def _build_ring_faces(nbr_idx: np.ndarray, tri_idx: np.ndarray) -> np.ndarray:
     """Faces incident to a vertex or to any of its neighbours ("2-ring"
-    faces), padded with the first entry. Native builder when available."""
-    geo = _native()
-    if geo is not None:
-        return geo.ring2_faces(np.ascontiguousarray(nbr_idx, np.int32),
-                               np.ascontiguousarray(tri_idx, np.int32))
-    rows = []
-    for v in range(nbr_idx.shape[0]):
-        fs = [int(t) for t in tri_idx[v] if t >= 0]
-        seen = set(fs)
-        for a in nbr_idx[v]:
-            if a < 0:
-                continue
-            for t in tri_idx[a]:
-                if t >= 0 and int(t) not in seen:
-                    seen.add(int(t))
-                    fs.append(int(t))
-        rows.append(fs)
-    return _pad_rows(rows, [r[0] for r in rows])
-
-
-def _pad_rows(rows, pads) -> np.ndarray:
-    out = np.empty((len(rows), max(len(r) for r in rows)), np.int32)
-    for v, (r, p) in enumerate(zip(rows, pads)):
-        out[v, : len(r)] = r
-        out[v, len(r):] = p
-    return out
+    faces), in first-seen order (own faces, then each neighbour's in
+    neighbour order; `_select` breaks ties by position), padded with the
+    first entry. Whole-array numpy: every row's candidate sequence at once,
+    duplicates dropped by first occurrence."""
+    n = nbr_idx.shape[0]
+    nbr_tris = np.where(nbr_idx[:, :, None] >= 0,
+                        tri_idx[np.maximum(nbr_idx, 0)], -1)   # (N,maxd,maxt)
+    seq = np.concatenate([tri_idx, nbr_tris.reshape(n, -1)], axis=1)
+    rows, cols = np.nonzero(seq >= 0)                 # row-major positions
+    faces = seq[rows, cols].astype(np.int64)
+    _, first = np.unique(rows * (int(faces.max()) + 1) + faces,
+                         return_index=True)
+    first.sort()                                      # back to seen order
+    rows, faces = rows[first], faces[first]
+    if np.unique(rows).size != n:
+        raise ValueError("ring faces: a vertex has no incident face")
+    row_first = faces[np.searchsorted(rows, np.arange(n))]
+    return padded_rows(rows, faces, n, pad=row_first)[0]
 
 
 def _bfs_ball(nbr: np.ndarray, n_centres: int, depth: int) -> np.ndarray:
     """(n_centres, C) vertices within `depth` edges of each centre (sorted,
-    self-padded). Native builder when available."""
-    geo = _native()
-    if geo is not None:
-        return geo.bfs_ball(np.ascontiguousarray(nbr, np.int32), n_centres,
-                            depth)
-    rows = []
-    for v in range(n_centres):
-        seen = {v}
-        frontier = [v]
-        for _ in range(depth):
-            nxt = []
-            for a in frontier:
-                for b in nbr[a]:
-                    if b >= 0 and int(b) not in seen:
-                        seen.add(int(b))
-                        nxt.append(int(b))
-            frontier = nxt
-        rows.append(sorted(seen))
-    return _pad_rows(rows, range(n_centres))
+    self-padded): rows [:n_centres] of (A+I)^depth by repeated sparse
+    products restricted to those rows."""
+    n = nbr.shape[0]
+    rows, cols = np.nonzero(nbr >= 0)
+    step = sparse.csr_matrix(
+        (np.ones(rows.size + n, np.int32),
+         (np.concatenate([rows, np.arange(n)]),
+          np.concatenate([nbr[rows, cols], np.arange(n)]))), shape=(n, n))
+    ball = sparse.identity(n, dtype=np.int32, format="csr")[:n_centres]
+    for _ in range(depth):
+        ball = ball @ step
+        ball.data[:] = 1
+    ball.sort_indices()
+    rows = np.repeat(np.arange(n_centres), np.diff(ball.indptr))
+    return padded_rows(rows, ball.indices, n_centres,
+                       pad=np.arange(n_centres))[0]
 
 
 _DESCENT_BASE_RES = 2      # dense stage over the first 162 vertices
@@ -116,7 +103,6 @@ def _descent_table(level: int) -> np.ndarray:
     """(n_{level-1}, Cd) candidates for refining a nearest-vertex result from
     icosphere level-1 to `level`: fine vertices within `_DESCENT_DEPTH`
     edges of each coarse vertex (coarse ids are a prefix of fine ids)."""
-    from newmsm_tpu.core.icosphere import icosphere
     return _bfs_ball(icosphere(level).nbr_idx, icosphere(level - 1).nvertices,
                      _DESCENT_DEPTH)
 
@@ -126,7 +112,6 @@ def _base_face_tables():
     """Base-face corner coords (20,3,3) in face vertex order, and inward
     edge normals (20,3,3): unit u lies in base face f iff all three
     dot(u, n) >= 0."""
-    from newmsm_tpu.core.icosphere import icosphere
     ico0 = icosphere(0)
     c = ico0.coords[ico0.faces]
     n01 = np.cross(c[:, 0], c[:, 1])
@@ -310,7 +295,6 @@ def _max_edge_stretch(coords: np.ndarray, faces: np.ndarray,
 def _icosphere_tables_on(res: int, device: torch.device, with_descent: bool):
     """Topology tensors of the level-`res` icosphere on `device` (cached:
     every warp step rebuilds SearchTables for the same topology)."""
-    from newmsm_tpu.core.icosphere import icosphere
     faces = icosphere(res).faces.astype(np.int64)
     ring = _icosphere_ring_faces(res).astype(np.int64)
     descent = tuple(
@@ -321,11 +305,10 @@ def _icosphere_tables_on(res: int, device: torch.device, with_descent: bool):
             torch.from_numpy(faces[ring]).to(device), descent)
 
 
-def build_tables(coords, faces, tri_idx=None, device="cpu") -> SearchTables:
-    """Host-side table prep (topology; coordinates may be deformed)."""
-    from newmsm_tpu.core.icosphere import (_NVERT_TO_RES, build_adjacency,
-                                           icosphere)
-    device = torch.device(device)
+def build_tables(coords, faces, tri_idx=None, device=None) -> SearchTables:
+    """Host-side table prep (topology; coordinates may be deformed).
+    `device` None means cuda."""
+    device = resolve_device(device)
     coords = np.asarray(coords)
     faces = np.asarray(faces, dtype=np.int32)
     coords_t = torch.as_tensor(coords, dtype=torch.float32).to(device)

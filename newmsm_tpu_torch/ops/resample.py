@@ -7,8 +7,8 @@ Exclusion semantics are kept: nonzero mask == usable vertex, excluded
 contributions are dropped without renormalising data weights, and the mask
 is resampled alongside (resampler.cpp:30-70).
 
-The mesh-level wrappers take numpy meshes (newmsm_tpu.core.mesh.Mesh) and
-an explicit device, and return numpy meshes.
+The mesh-level wrappers take numpy meshes (core.mesh.Mesh) and a device
+(None means cuda), and return numpy meshes.
 """
 from __future__ import annotations
 
@@ -17,10 +17,9 @@ import math
 import numpy as np
 import torch
 
-from newmsm_tpu.core.mesh import Mesh
-
-from .. import RAD
+from .. import RAD, resolve_device
 from ..core import spherical as sph
+from ..core.mesh import Mesh
 from .nearest import SearchTables, barycentric_coords, build_tables, closest_vertex
 
 
@@ -163,7 +162,7 @@ def warp_coords(coords, frm_tables: SearchTables, to_coords):
 
 
 # --------------------------------------------------------------------------
-# mesh-level wrappers (numpy meshes in and out, explicit device)
+# mesh-level wrappers (numpy meshes in and out; device None means cuda)
 # --------------------------------------------------------------------------
 
 def _tables(mesh: Mesh, device) -> SearchTables:
@@ -175,10 +174,11 @@ def _adaptive_cap(nold: int, nnew: int) -> int:
 
 
 def metric_resample(data_mesh: Mesh, low_mesh: Mesh,
-                    excl: np.ndarray | None = None, device="cpu"):
+                    excl: np.ndarray | None = None, device=None):
     """Adaptive-barycentric metric resampling (metric_resample,
     resampler.cpp:304-309). Returns (Mesh on low topology with resampled
     data, resampled exclusion mask | None)."""
+    device = resolve_device(device)
     excl_t = None if excl is None else _f32(excl, device)
     idx, w = adaptive_weights(
         _f32(data_mesh.coords, device), _f32(low_mesh.coords, device),
@@ -195,9 +195,10 @@ def metric_resample(data_mesh: Mesh, low_mesh: Mesh,
 
 
 def smooth_data(mesh: Mesh, sigma: float, excl: np.ndarray | None = None,
-                device="cpu"):
+                device=None):
     """Smooth mesh data (reference featurespace use, orig == sphLow).
     Returns (new Mesh, new_excl | None)."""
+    device = resolve_device(device)
     out, new_e = smooth_kernel(
         _f32(mesh.coords, device), _f32(mesh.data, device), float(sigma),
         None if excl is None else _f32(excl, device))
@@ -209,8 +210,9 @@ def smooth_data(mesh: Mesh, sigma: float, excl: np.ndarray | None = None,
 
 def nearest_neighbour_interpolation(data_mesh: Mesh, low_mesh: Mesh,
                                     excl: np.ndarray | None = None,
-                                    device="cpu"):
+                                    device=None):
     """(resampler.cpp:232-258)."""
+    device = resolve_device(device)
     nn = closest_vertex(_f32(low_mesh.coords, device),
                         _tables(data_mesh, device)).cpu().numpy()
     data = data_mesh.data[:, nn]
@@ -223,9 +225,10 @@ def nearest_neighbour_interpolation(data_mesh: Mesh, low_mesh: Mesh,
     return result, new_excl
 
 
-def sphere_project_warp(sphere: Mesh, frm: Mesh, to: Mesh, device="cpu") -> Mesh:
+def sphere_project_warp(sphere: Mesh, frm: Mesh, to: Mesh, device=None) -> Mesh:
     """Express sphere vertices barycentrically in `frm`, re-evaluate in `to`,
     re-project to radius 100 (resampler.cpp:311-328). Returns a new Mesh."""
+    device = resolve_device(device)
     new_coords = warp_coords(_f32(sphere.coords, device), _tables(frm, device),
                              _f32(to.coords, device))
     return Mesh(coords=new_coords.cpu().numpy().astype(np.float64),

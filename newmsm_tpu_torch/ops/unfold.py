@@ -19,10 +19,10 @@ import functools
 import numpy as np
 import torch
 
-from newmsm_tpu.core.mesh import Mesh
-
-from .. import RAD
+from .. import RAD, resolve_device
 from ..core import spherical as sph
+from ..core.mesh import Mesh
+from ..reg.optimise.coloring import color_groups, vertex_coloring_from_faces
 
 
 def _face_normals(coords, faces):
@@ -102,8 +102,6 @@ def _sweep(coords, faces, tri_idx, fv, color_masks, nbr_idx, steps):
 
 @functools.lru_cache(maxsize=None)
 def _vertex_groups_np(faces_key: bytes, nverts: int, nfaces: int):
-    from newmsm_tpu.reg.optimise.coloring import (color_groups,
-                                                  vertex_coloring_from_faces)
     faces = np.frombuffer(faces_key, dtype=np.int32).reshape(nfaces, 3)
     return color_groups(vertex_coloring_from_faces(faces, nverts))
 
@@ -120,10 +118,11 @@ def _color_masks(mesh: Mesh, device):
 
 
 def unfold(mesh: Mesh, verbose: bool = False, max_iter: int = 1000,
-           chunk: int = 25, n_steps: int = 11, device="cpu") -> Mesh:
-    """Returns a fold-free copy of `mesh` (or the stalled residual)."""
+           chunk: int = 25, n_steps: int = 11, device=None) -> Mesh:
+    """Returns a fold-free copy of `mesh` (or the stalled residual).
+    `device` None means cuda."""
     nbr_idx, _, tri_idx, _ = mesh.adjacency
-    dev = torch.device(device)
+    dev = resolve_device(device)
     coords = torch.as_tensor(mesh.coords, dtype=torch.float32).to(dev)
     faces = torch.as_tensor(mesh.faces.astype(np.int64)).to(dev)
     tri_idx = torch.as_tensor(tri_idx.astype(np.int64)).to(dev)
@@ -171,9 +170,10 @@ def unfold(mesh: Mesh, verbose: bool = False, max_iter: int = 1000,
     return out
 
 
-def count_folds(mesh: Mesh, device="cpu") -> int:
+def count_folds(mesh: Mesh, device=None) -> int:
+    """Number of folded vertices of `mesh` (`device` None means cuda)."""
     _, _, tri_idx, _ = mesh.adjacency
-    dev = torch.device(device)
+    dev = resolve_device(device)
     return int(_folded_mask(
         torch.as_tensor(mesh.coords, dtype=torch.float32).to(dev),
         torch.as_tensor(mesh.faces.astype(np.int64)).to(dev),

@@ -9,24 +9,29 @@ Port of the parts of newmsm_tpu/reg/costs.py that path runs:
 
 The exact target gather is used throughout (the JAX package's blocked
 gather, ops/blocked.py, exists for the TPU's gather rate and is not
-ported). Host helpers (`_ball_table_np`, `_ball_cover_np`,
-`patch_candidate_ball`, `max_inrange_count`) are numpy copies: the JAX
-module cannot be imported without JAX.
+ported). The patch helpers (`_ball_table_np`, `patch_candidate_ball`) are
+host numpy; their dense float64 searches (`_ball_cover`,
+`max_inrange_count`) run on the device.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .. import FIX_NAN, FOLDING, RAD
+from .. import FIX_NAN, FOLDING, RAD, resolve_device
 from ..core import spherical as sph
+from ..core.icosphere import _NVERT_TO_RES, icosphere
 from ..ops import similarity as simi
 from ..ops.nearest import (SearchTables, _bfs_ball, _search,
                            resample_pristine_soa)
 from ..ops.strain import triangular_strain
+
+# graph-ball depths tried, in order, by `patch_candidate_ball`
+BALL_DEPTHS = (4, 6, 8, 10, 12, 14, 16)
 
 # slack on the in-range limit when counting patch members for the overflow
 # (grow-pmax) signal: absorbs the matmul-form score noise
@@ -93,7 +98,6 @@ def build_patches(cp_coords, src_coords, maxsep, cprange, pmax: int,
 def _ball_table_np(res: int, n_centres: int, depth: int):
     """(n_centres, C) graph-ball candidate table on the pristine level-`res`
     icosphere, -1 padded (CP ids are a prefix of the fine ids)."""
-    from newmsm_tpu.core.icosphere import icosphere
     tab = _bfs_ball(icosphere(res).nbr_idx, n_centres, depth)
     # self-padding duplicates -> -1 (they would double-count in the sims)
     eq = tab == np.arange(n_centres, dtype=tab.dtype)[:, None]
@@ -103,28 +107,36 @@ def _ball_table_np(res: int, n_centres: int, depth: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _ball_cover_np(res: int, n_centres: int, depth: int) -> float:
+def _ball_cover(res: int, n_centres: int, depth: int,
+                device: torch.device, chunk: int = 512) -> float:
     """Certified pristine cover radius of `_ball_table_np`: the minimum over
-    centres of the arc distance to the nearest non-ball vertex."""
-    from newmsm_tpu.core.icosphere import icosphere
-    tab = _ball_table_np(res, n_centres, depth)
-    u = icosphere(res).coords.astype(np.float64)
-    cover = np.inf
-    for s in range(0, n_centres, 256):
-        e = min(s + 256, n_centres)
-        dist = RAD * np.arccos(np.clip(u[s:e] @ u.T, -1.0, 1.0))
-        t = tab[s:e]
-        rr, cc = np.nonzero(t >= 0)
-        dist[rr, t[rr, cc]] = np.inf
-        cover = min(cover, float(dist.min()))
-    return cover
+    centres of the arc distance to the nearest non-ball vertex, searched
+    over ALL vertices. The arc is monotone in the dot product, so the
+    search is a chunked float64 product and masked maximum on `device`,
+    with one arccos of the winning dot at the end."""
+    tab = torch.from_numpy(_ball_table_np(res, n_centres, depth)).to(
+        device, torch.int64)
+    u = torch.from_numpy(icosphere(res).coords).to(device)       # f64
+    best = torch.full((), -2.0, dtype=u.dtype, device=device)
+    for s in range(0, n_centres, chunk):
+        t = tab[s:s + chunk]
+        dots = u[s:s + t.shape[0]] @ u.T
+        # ball members out of the search; -1 padding lands on the centre's
+        # own column, a ball member already
+        rows = torch.arange(s, s + t.shape[0], device=device)[:, None]
+        dots.scatter_(1, torch.where(t >= 0, t, rows), -2.0)
+        best = torch.maximum(best, dots.max())
+    best = float(best)
+    return float("inf") if best < -1.0 else RAD * math.acos(min(best, 1.0))
 
 
-def patch_candidate_ball(cp_coords, src_coords, faces, limits, rad=RAD):
-    """Host-side: a candidate ball table for `build_patches` whose
-    exactness certificate holds (see the JAX original for the bound), or
-    None (caller then uses the dense path)."""
-    from newmsm_tpu.core.icosphere import _NVERT_TO_RES, icosphere
+def patch_candidate_ball(cp_coords, src_coords, faces, limits, rad=RAD,
+                         device=None):
+    """A candidate ball table for `build_patches` whose exactness
+    certificate holds (see the JAX original for the bound), or None (caller
+    then uses the dense path). Host numpy except the cover-radius search,
+    which runs on `device` (None means cuda)."""
+    device = resolve_device(device)
     src_coords = np.asarray(src_coords)
     cp_coords = np.asarray(cp_coords)
     faces = np.asarray(faces)
@@ -146,27 +158,31 @@ def patch_candidate_ball(cp_coords, src_coords, faces, limits, rad=RAD):
     chord0 = np.linalg.norm(cp_coords - src_coords[:K], axis=1)
     d0 = 2.0 * rad * np.arcsin(np.clip(chord0 / (2.0 * rad), -1, 1))
     r_req = float(s_max * (1.3 * (d0 + np.asarray(limits)).max() + 4.0 * e_max))
-    for depth in (4, 6, 8, 10, 12, 14, 16):
-        if _ball_cover_np(res, K, depth) > r_req:
+    for depth in BALL_DEPTHS:
+        if _ball_cover(res, K, depth, device) > r_req:
             tab = _ball_table_np(res, K, depth)
             return None if tab.shape[1] >= N // 2 else tab
     return None
 
 
 def max_inrange_count(cp_coords, src_coords, limits, rad=RAD,
-                      chunk=512) -> int:
-    """Host-side exact max over CPs of the in-range source-vertex count
-    (sizes the pmax patch capacity)."""
-    cp_coords = np.asarray(cp_coords, np.float64)
-    src_coords = np.asarray(src_coords, np.float64)
-    uc = cp_coords / np.linalg.norm(cp_coords, axis=1, keepdims=True)
-    uv = src_coords / np.linalg.norm(src_coords, axis=1, keepdims=True)
-    lim = np.asarray(limits, np.float64)
-    best = 0
-    for s in range(0, len(uc), chunk):
-        d = rad * np.arccos(np.clip(uc[s:s + chunk] @ uv.T, -1.0, 1.0))
-        best = max(best, int((d < lim[s:s + chunk, None]).sum(1).max()))
-    return best
+                      chunk=512, device=None) -> int:
+    """Exact max over CPs of the in-range source-vertex count (sizes the
+    pmax patch capacity): chunked float64 arcs on `device` (None means
+    cuda), one read-back at the end."""
+    device = resolve_device(device)
+
+    def unit(a):
+        a = torch.as_tensor(np.asarray(a, np.float64)).to(device)
+        return a / torch.linalg.norm(a, dim=1, keepdim=True)
+
+    uc, uv = unit(cp_coords), unit(src_coords)
+    lim = torch.as_tensor(np.asarray(limits, np.float64)).to(device)
+    best = torch.zeros((), dtype=torch.int64, device=device)
+    for s in range(0, uc.shape[0], chunk):
+        d = rad * torch.arccos((uc[s:s + chunk] @ uv.T).clamp(-1.0, 1.0))
+        best = torch.maximum(best, (d < lim[s:s + chunk, None]).sum(1).max())
+    return int(best)
 
 
 def rotated_label_positions(cp_coords, labels, centre):

@@ -17,15 +17,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from newmsm_tpu.core import io as mio
-from newmsm_tpu.core.mesh import Mesh, create_exclusion
-from newmsm_tpu.reg.config import RegConfig, parse_config
-
 from .. import RAD, resolve_device
+from ..core import io as mio
+from ..core.mesh import Mesh, create_exclusion
 from ..ops import histogram as hst
 from ..ops import resample as rsp
 from ..ops.unfold import unfold
 from . import featurespace as fsp
+from .config import RegConfig, parse_config
 from .model import ModelConfig, PairwiseModel
 from .optimise import fusion as FU
 
@@ -39,9 +38,9 @@ def _not_ported(what: str):
 
 class MeshRegistration:
     """Pairwise registration: input sphere + data -> warped sphere aligned to
-    the reference sphere + data, computed on `device`."""
+    the reference sphere + data, computed on `device` (None means cuda)."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device=None):
         self.device = resolve_device(device)
         self.in_mesh: Optional[Mesh] = None
         self.ref_mesh: Optional[Mesh] = None

@@ -10,9 +10,8 @@ from typing import List, Optional
 
 import numpy as np
 
-from newmsm_tpu.core.mesh import Mesh, create_exclusion
-
-from .. import RAD
+from .. import RAD, resolve_device
+from ..core.mesh import Mesh, create_exclusion
 from ..ops import histogram as hst
 from ..ops import resample as rsp
 
@@ -45,9 +44,11 @@ class Featurespace:
 def initialise(meshes: List[Mesh], datasets: List[np.ndarray], ico_res: int,
                sigma: List[float], exclude: bool = False, cut: bool = False,
                thresholds=(0.0, 0.0001), intensity_norm: bool = False,
-               variance_norm: bool = False, device="cpu") -> Featurespace:
+               variance_norm: bool = False, device=None) -> Featurespace:
     """featurespace::initialise (featurespace.cpp:39-86). ico_res == 0
-    means "use the native mesh" (no resampling grid)."""
+    means "use the native mesh" (no resampling grid). `device` None means
+    cuda."""
+    device = resolve_device(device)
     if len(meshes) != len(datasets):
         raise ValueError("number of meshes and datasets differ")
 

@@ -17,14 +17,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from newmsm_tpu.core.mesh import Mesh
-from newmsm_tpu.reg.sampling_grid import build_sampling_grid, rescale_labels
-
+from .. import resolve_device
+from ..core.mesh import Mesh
 from ..ops import resample as rsp
 from ..ops.nearest import build_tables
 from . import costs as C
 from .optimise.fusion import FusionTables, bits, build_fusion_tables
-
+from .sampling_grid import build_sampling_grid, rescale_labels
 
 
 @dataclass
@@ -48,18 +47,19 @@ LABELDIST = 0.5              # _labeldist (DiscreteModel.h:167)
 
 
 class PairwiseModel:
-    """Per-level discrete model: device tensors, host orchestration."""
+    """Per-level discrete model: device tensors, host orchestration
+    (`device` None means cuda)."""
 
     def __init__(self, cfg: ModelConfig, cp_grid: Mesh, source: Mesh,
                  target: Mesh, feat_src: np.ndarray, feat_ref: np.ndarray,
-                 device="cpu"):
+                 device=None):
         if cfg.regmode not in (2, 3):
             raise NotImplementedError(
                 f"regoption {cfg.regmode} is not ported yet; the port runs "
                 "the triplet-strain regulariser (regoption 2/3), see "
                 "ROADMAP.md queue 1")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         dev = self.device
         self.cp_grid = cp_grid.copy()        # current CP grid (moves)
         self.orig_cp = cp_grid.copy()        # level-start grid
@@ -93,7 +93,7 @@ class PairwiseModel:
         # margin, rounded to 16
         cnt = C.max_inrange_count(
             self.cp_grid.coords, source.coords,
-            cfg.cprange * self.tables.maxsep.cpu().numpy())
+            cfg.cprange * self.maxsep, device=dev)
         self.pmax = int(min(source.nvertices,
                             max(32, -(-int(cnt * 1.25) // 16) * 16)))
         self.iter = 1
@@ -137,7 +137,7 @@ class PairwiseModel:
         limits = cfg.cprange * self.tables.maxsep
         ball_np = C.patch_candidate_ball(
             cp.cpu().numpy(), src.cpu().numpy(), self.source.faces,
-            limits.cpu().numpy())
+            limits.cpu().numpy(), device=dev)
         ball = None if ball_np is None else torch.as_tensor(
             ball_np.astype(np.int64)).to(dev)
 

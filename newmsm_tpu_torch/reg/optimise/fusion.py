@@ -24,8 +24,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from newmsm_tpu.reg.optimise.coloring import (color_groups,
-                                              vertex_coloring_from_faces)
+from ... import resolve_device
+from .coloring import color_groups, vertex_coloring_from_faces
 
 
 class FusionTables(NamedTuple):
@@ -43,9 +43,10 @@ def color_group_tensors(groups: np.ndarray, mask: np.ndarray,
 
 
 def build_fusion_tables(triplets: np.ndarray, nverts: int,
-                        device="cpu") -> FusionTables:
-    """numpy copy of the JAX package's builder (its module imports JAX),
-    triplet path only."""
+                        device=None) -> FusionTables:
+    """numpy copy of the JAX package's function, triplet path only
+    (`device` None means cuda)."""
+    dev = resolve_device(device)
     vt: list[list[tuple[int, int]]] = [[] for _ in range(nverts)]
     for t, tri in enumerate(triplets):
         for corner, v in enumerate(tri):
@@ -58,7 +59,6 @@ def build_fusion_tables(triplets: np.ndarray, nverts: int,
             vert_tri[v, i] = t
             vert_corner[v, i] = c
     groups, mask = color_groups(vertex_coloring_from_faces(triplets, nverts))
-    dev = torch.device(device)
     return FusionTables(
         groups=color_group_tensors(groups, mask, dev),
         vert_tri=torch.from_numpy(vert_tri).to(dev),

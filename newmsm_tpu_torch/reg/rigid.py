@@ -13,10 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from newmsm_tpu.core.mesh import Mesh
-
-from .. import RAD
+from .. import RAD, resolve_device
 from ..core import spherical as sph
+from ..core.mesh import Mesh
 
 
 def rigid_cost(angles, src_coords, src_data_c, tgt_coords, tgt_data_c,
@@ -75,10 +74,10 @@ def _center_columns(data: np.ndarray) -> np.ndarray:
 
 
 def rigid_align(sph_reg: Mesh, sph_orig: Mesh, feat, cfg, iters: int,
-                simval: int, verbose: bool = False, device="cpu") -> Mesh:
+                simval: int, verbose: bool = False, device=None) -> Mesh:
     """Annealed finite-difference ascent (run, rigid_costfunction.cpp:
-    164-228). Returns the rotated source sphere."""
-    dev = torch.device(device)
+    164-228). Returns the rotated source sphere. `device` None means cuda."""
+    dev = resolve_device(device)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)  # noqa: E731
     src = sph_reg.copy()
     mvd = src.calculate_MeanVD()

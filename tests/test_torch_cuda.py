@@ -1,7 +1,8 @@
 """Tests of newmsm_tpu_torch that need a CUDA card: the hand-written
 locate kernel against its plain PyTorch version on the card. They skip
 without one. The machine with the card has no JAX, so this file imports
-none, and is run there without tests/conftest.py (which imports JAX):
+neither JAX nor the JAX package, and is run there without tests/conftest.py
+(which imports JAX):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
@@ -9,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from newmsm_tpu.core.icosphere import icosphere
+from newmsm_tpu_torch.core.icosphere import icosphere
 
 
 @pytest.fixture

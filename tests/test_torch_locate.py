@@ -163,11 +163,95 @@ def test_kernel_source_and_build_command():
     assert lib.parent.parent.name in (ROOT / ".gitignore").read_text()
 
 
+def _locate_carried(u, res):
+    """The CUDA kernel's descent, written on the plain ops: per level three
+    NEW mid planes; the chosen child's own edge planes are carried from
+    planes the level already holds, and the orientation sign is taken once
+    from the base face. Returns (fid, max |carried - recomputed| over the
+    levels and the three edge planes)."""
+    bc, bn = tnst._base_tables_on(u[0].device)
+    smin = torch.stack([u[0][:, None] * bn[:, e, 0] + u[1][:, None] * bn[:, e, 1]
+                        + u[2][:, None] * bn[:, e, 2] for e in range(3)]).min(0)
+    fid = torch.argmax(smin.values, dim=1)
+    c = bc[fid]
+    va, vb, vc = ((c[:, i, 0], c[:, i, 1], c[:, i, 2]) for i in range(3))
+    sab, sbc, sca = (tnst._dot3(u, tuple(bn[fid][:, e, i] for i in range(3)))
+                     for e in range(3))
+    og = torch.where(tnst._dot3(tnst._cross3(va, vb), vc) >= 0, 1.0, -1.0)
+    uo = tuple(a * og for a in u)
+
+    def mid(a, b):
+        x, y, z = a[0] + b[0], a[1] + b[1], a[2] + b[2]
+        inv = torch.rsqrt(x * x + y * y + z * z)
+        return x * inv, y * inv, z * inv
+
+    def pdist(n):
+        return tnst._dot3(uo, n) * torch.rsqrt(tnst._dot3(n, n))
+
+    def sdist(n, r):          # the plain version's recomputed plane
+        du = tnst._dot3(u, n) * torch.rsqrt(tnst._dot3(n, n))
+        return torch.where(tnst._dot3(r, n) >= 0, du, -du)
+
+    worst = 0.0
+    for _ in range(res):
+        m01, m12, m02 = mid(va, vb), mid(vb, vc), mid(va, vc)
+        s1 = pdist(tnst._cross3(m01, m12))
+        s2 = pdist(tnst._cross3(m12, m02))
+        s3 = pdist(tnst._cross3(m02, m01))
+        best = torch.minimum(s1, torch.minimum(s2, s3))
+        k = torch.zeros_like(fid)
+        for kk, s in ((1, torch.minimum(sca, torch.minimum(sab, -s3))),
+                      (3, torch.minimum(sab, torch.minimum(sbc, -s1))),
+                      (2, torch.minimum(sbc, torch.minimum(sca, -s2)))):
+            upd = s > best
+            best = torch.where(upd, s, best)
+            k = torch.where(upd, torch.full_like(k, kk), k)
+        fid = 4 * fid + k
+        ka, kb, kc = k == 1, k == 3, k == 2
+
+        def sel(a, b, c_, ctr):
+            return torch.where(ka, a, torch.where(kb, b, torch.where(
+                kc, c_, ctr)))
+
+        na = tuple(sel(m02[i], m01[i], m12[i], m01[i]) for i in range(3))
+        nb = tuple(sel(va[i], vb[i], vc[i], m12[i]) for i in range(3))
+        nc = tuple(sel(m01[i], m12[i], m02[i], m02[i]) for i in range(3))
+        sab, sbc, sca = (sel(sca, sab, sbc, s1), sel(sab, sbc, sca, s2),
+                         sel(-s3, -s1, -s2, s3))
+        va, vb, vc = na, nb, nc
+        for carried, n, r in ((sab, tnst._cross3(va, vb), vc),
+                              (sbc, tnst._cross3(vb, vc), va),
+                              (sca, tnst._cross3(vc, va), vb)):
+            worst = max(worst, float((carried - sdist(n, r)).abs().max()))
+    return fid, worst
+
+
+@pytest.mark.parametrize("res", range(7))
+def test_carried_planes_equal_recomputed_planes(res):
+    """The identity the CUDA kernel's descent relies on: the edge planes of
+    the chosen child, carried down from the parent level's planes (sign
+    flipped for the cut-off mid plane) with one orientation sign per query,
+    equal the planes recomputed from the child's corners within 1e-6 up to
+    res 4 and within 4e-8 * 2^res above (a recomputed normal is the cross
+    product of corners one edge apart, and the edge halves per level, so
+    its float32 rounding doubles: measured 1.7e-7, 3.9e-7, 9.1e-7, 1.8e-6
+    at res 3..6), and the face ids they select differ from the plain
+    version's on at most 1e-4 of 2^16 queries (exact boundary ties only)."""
+    q = unit_queries(1 << 16, seed=40 + res, radius=1.0)
+    u = tuple(torch.from_numpy(np.ascontiguousarray(q[:, i]))
+              for i in range(3))
+    fid_c, worst = _locate_carried(u, res)
+    fid_p = tloc.locate_bary_reference(*u, res)[0]
+    assert worst <= max(1e-6, 4e-8 * 2 ** res)
+    assert int((fid_c != fid_p.long()).sum()) <= 1e-4 * len(q)
+
+
 # ------------------------------------------------------------ search tier
 
 def _tables(mesh):
     return (jnst.build_tables(mesh.coords, mesh.faces, mesh.adjacency[2]),
-            tnst.build_tables(mesh.coords, mesh.faces, mesh.adjacency[2]))
+            tnst.build_tables(mesh.coords, mesh.faces, mesh.adjacency[2],
+                              device="cpu"))
 
 
 @pytest.mark.parametrize("res,warped", [(3, False), (4, False), (3, True),

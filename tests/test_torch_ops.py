@@ -11,6 +11,7 @@ from newmsm_tpu.ops import similarity as jsim
 from newmsm_tpu.ops import strain as jstr
 from newmsm_tpu.ops import unfold as junf
 
+from newmsm_tpu_torch.convert import mesh as tmesh
 from newmsm_tpu_torch.ops import histogram as thst
 from newmsm_tpu_torch.ops import resample as trsp
 from newmsm_tpu_torch.ops import similarity as tsim
@@ -81,7 +82,8 @@ def test_metric_resample_matches_jax(with_excl):
     if with_excl:
         excl = (smooth_pattern(src.coords, 9) > -1.0).astype(float)
     out_j, ex_j = jrsp.metric_resample(src, low, excl)
-    out_t, ex_t = trsp.metric_resample(src, low, excl)
+    out_t, ex_t = trsp.metric_resample(tmesh(src), tmesh(low), excl,
+                                        device="cpu")
     np.testing.assert_allclose(out_t.data, out_j.data, atol=1e-4)
     if with_excl:
         np.testing.assert_allclose(ex_t, ex_j, atol=1e-4)
@@ -94,7 +96,7 @@ def test_smooth_data_matches_jax(with_excl):
     excl = ((smooth_pattern(mesh.coords, 4) > -0.8).astype(float)
             if with_excl else None)
     out_j, ex_j = jrsp.smooth_data(mesh, 2.0, excl)
-    out_t, ex_t = trsp.smooth_data(mesh, 2.0, excl)
+    out_t, ex_t = trsp.smooth_data(tmesh(mesh), 2.0, excl, device="cpu")
     np.testing.assert_allclose(out_t.data, out_j.data, atol=1e-4)
     if with_excl:
         np.testing.assert_allclose(ex_t, ex_j, atol=1e-4)
@@ -106,14 +108,16 @@ def test_sphere_project_warp_and_nearest_neighbour():
     to = warped_icosphere(3, seed=8, deg=4.0)
     sphere = Mesh.from_icosphere(4)
     out_j = jrsp.sphere_project_warp(sphere, frm, to)
-    out_t = trsp.sphere_project_warp(sphere, frm, to)
+    out_t = trsp.sphere_project_warp(tmesh(sphere), tmesh(frm), tmesh(to),
+                                     device="cpu")
     np.testing.assert_allclose(out_t.coords, out_j.coords, atol=1e-3)
 
     src = warped_icosphere(4, seed=6, deg=3.0)
     src.data = smooth_pattern(src.coords, 5)[None]
     excl = (smooth_pattern(src.coords, 6) > -1.0).astype(float)
     nn_j, ex_j = jrsp.nearest_neighbour_interpolation(src, frm, excl)
-    nn_t, ex_t = trsp.nearest_neighbour_interpolation(src, frm, excl)
+    nn_t, ex_t = trsp.nearest_neighbour_interpolation(
+        tmesh(src), tmesh(frm), excl, device="cpu")
     np.testing.assert_array_equal(nn_t.data, nn_j.data)
     np.testing.assert_array_equal(ex_t, ex_j)
 
@@ -137,9 +141,9 @@ def test_unfold_matches_jax():
     sweep cadence; coordinates agree to 1e-3 at RAD = 100."""
     mesh = _folded_sphere()
     assert junf.count_folds(mesh) > 0
-    assert tunf.count_folds(mesh) == junf.count_folds(mesh)
+    assert tunf.count_folds(tmesh(mesh), device="cpu") == junf.count_folds(mesh)
     out_j = junf.unfold(mesh)
-    out_t = tunf.unfold(mesh)
+    out_t = tunf.unfold(tmesh(mesh), device="cpu")
     assert junf.count_folds(out_j) == 0
-    assert tunf.count_folds(out_t) == 0
+    assert tunf.count_folds(out_t, device="cpu") == 0
     np.testing.assert_allclose(out_t.coords, out_j.coords, atol=1e-3)

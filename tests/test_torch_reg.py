@@ -45,7 +45,8 @@ def models():
               rescale_labels=True, multivariate=True)
     jm = JM.PairwiseModel(JM.ModelConfig(**kw), control, source, target,
                           fs, fr)
-    tm = TM.PairwiseModel(TM.ModelConfig(**kw), control, source, target,
+    tm = TM.PairwiseModel(TM.ModelConfig(**kw), convert.mesh(control),
+                          convert.mesh(source), convert.mesh(target),
                           fs, fr, device="cpu")
     cfw = np.ones((1, target.nvertices))
     sj = jm.setup_iteration(cfw)
@@ -95,12 +96,13 @@ def test_build_patches_matches_jax(cp_res, src_res, deg):
     src = source.coords.astype(np.float32)
     maxsep = control.max_vertex_distances().astype(np.float32)
     ball = JC.patch_candidate_ball(cp, src, source.faces, maxsep)
-    ball_t = TC.patch_candidate_ball(cp, src, source.faces, maxsep)
+    ball_t = TC.patch_candidate_ball(cp, src, source.faces, maxsep,
+                                     device="cpu")
     assert (ball is None) == (src_res == 3)
     if ball is not None:
         np.testing.assert_array_equal(ball_t, ball)
     pfull = JC.max_inrange_count(cp, src, maxsep)
-    assert TC.max_inrange_count(cp, src, maxsep) == pfull
+    assert TC.max_inrange_count(cp, src, maxsep, device="cpu") == pfull
     for pmax in (16, pfull + 8):      # 16 overflows: the grow signal
         ij, mj, oj = JC.build_patches(
             jnp.asarray(cp), jnp.asarray(src), jnp.asarray(maxsep), 1.0,
@@ -122,8 +124,9 @@ def test_unary_costs_match_jax(models, mode):
     """The (K,L) unary volume from identical state: atol 1e-4 (weighted
     correlations of float32 resampled data, values in [0, 1])."""
     jm, _, sj, _ = models
-    st = convert.iteration_state({k: np.asarray(v) for k, v in sj.items()})
-    lt = convert.level_tables(jm.tables)
+    st = convert.iteration_state({k: np.asarray(v) for k, v in sj.items()},
+                                 device="cpu")
+    lt = convert.level_tables(jm.tables, device="cpu")
     src_j, src_t = jm.tables.source_data, lt.source_data
     if mode == "univariate":
         src_j, src_t = src_j[:1], src_t[:1]
@@ -143,8 +146,9 @@ def test_triplet_costs_match_jax(models):
     """triplet_combo_costs and the binary_fast (T,8) tables: float32 strain
     costs (see assert_close_f32), FOLDING entries equal."""
     jm, tm, sj, _ = models
-    st = convert.iteration_state({k: np.asarray(v) for k, v in sj.items()})
-    tm.tables = convert.level_tables(jm.tables)
+    st = convert.iteration_state({k: np.asarray(v) for k, v in sj.items()},
+                                 device="cpu")
+    tm.tables = convert.level_tables(jm.tables, device="cpu")
     T = jm.tables.triplets.shape[0]
     L = jm.num_labels
     rng = np.random.default_rng(0)
@@ -174,8 +178,9 @@ def test_fusion_optimize_matches_jax_with_injected_starts(models):
     """Same unary, tables and random starts: the same labeling, energy to
     rtol 1e-5."""
     jm, tm, sj, _ = models
-    st = convert.iteration_state({k: np.asarray(v) for k, v in sj.items()})
-    tm.tables = convert.level_tables(jm.tables)
+    st = convert.iteration_state({k: np.asarray(v) for k, v in sj.items()},
+                                 device="cpu")
+    tm.tables = convert.level_tables(jm.tables, device="cpu")
     L = jm.num_labels
     uj = jm.unary(sj).T[:L]                              # (L,K)
     K = uj.shape[1]
@@ -187,7 +192,7 @@ def test_fusion_optimize_matches_jax_with_injected_starts(models):
 
     ut = torch.from_numpy(np.array(uj))
     tfn_t = tm.triplet_combo_fn(st)
-    ftab = convert.fusion_tables(jm.fusion_tables)
+    ftab = convert.fusion_tables(jm.fusion_tables, device="cpu")
     lab_t = TFU.fusion_optimize(torch.zeros(K, dtype=torch.int64), ut,
                                 tm.tables.triplets, ftab, tfn_t, L,
                                 random_starts=_jax_starts(K))
@@ -217,8 +222,8 @@ def test_fusion_binary_solve_is_exact_on_12_nodes():
     triplets) solved by the port equals the 4096-state enumeration minimum
     (float32 sums: rtol 1e-6), as tests/test_fusion_optimality.py asserts
     for the JAX package."""
-    target = Mesh.from_icosphere(3)
-    control = Mesh.from_icosphere(0)
+    target = convert.mesh(Mesh.from_icosphere(3))
+    control = convert.mesh(Mesh.from_icosphere(0))
     fs = smooth_pattern(target.coords, 3)[None]
     fr = smooth_pattern(target.coords, 4)[None]
     tm = TM.PairwiseModel(TM.ModelConfig(simval=2, reglambda=0.3, sg_res=2,
@@ -254,8 +259,8 @@ def test_rigid_align_matches_jax():
     feat = Featurespace(data=[ind, refd], excl=[None, None])
     cfg = RegConfig()
     out_j = JR.rigid_align(inp, ref, feat, cfg, iters=10, simval=2)
-    out_t = TR.rigid_align(inp, ref, feat, cfg, iters=10, simval=2,
-                           device="cpu")
+    out_t = TR.rigid_align(convert.mesh(inp), convert.mesh(ref), feat, cfg,
+                           iters=10, simval=2, device="cpu")
     np.testing.assert_allclose(out_t.coords, out_j.coords, atol=1e-2)
 
     mvd = inp.calculate_MeanVD()
