@@ -14,17 +14,32 @@ no result line:
               2^20 random directions plus every vertex of ico-res, res in
               {0,2,4,6}; row sums, reconstructed positions, vertex mass and
               face-id agreement;
+              then queries off the sphere (radius 0.5 to 150, as the
+              anatomical cost sends them) in one call of 1,966,080, the
+              size of a triclique call at ico-6;
   4. main     the pairwise strain-registration path through the CLI
               (config_standard_MSM_strain, --it cut to 10,3,3,3) on an ico-6
               synthetic subject; checks outputs, folds, the sulc CC gain and
               that the path went through the kernel; prints the first
               set-up seconds of each level (the cold host table builds);
-  5. timing   the kernel and its plain version at the shape of the main
+  5. msmpair  config_standard_MSMpair (regoption 1, the pairwise rotation
+              regulariser; --it cut to 10,3,3,3) on the same subject: also
+              checks that no chosen labeling lands on a FOLDING-gated pair;
+  6. amsm     the structure of the aMSM longitudinal recipe (regoption 5 +
+              triclique, three levels, anatomical meshes) on an ico-6
+              longitudinal pair: also checks anat.reg.surf.gii and the
+              4-row STRAINS.func.gii. Not the reference's config file
+              verbatim, which is not in this repository;
+  7. mcmc     one --dopt=MCMC --regoption=3 run at small depth (CP ico-2/3,
+              1280 draws a level): energies, folds, seconds per sweep;
+  8. timing   the kernel and its plain version at the shape of the main
               path's largest locate call: windows of back-to-back launches
               between CUDA events (median and spread), the SM clock and
               power sampled under the load, the roofline bound and the
               issue-slot bound from the SASS instruction count.
 
+Phases 4 to 7 each set the kernel's launch count to 0 before the CLI call
+and read it after; a path that never launched the kernel fails the run.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Imports neither JAX nor the JAX package.
 """
@@ -69,6 +84,76 @@ STRAIN_CONFIG = f"""\
 --shearmod=0.4
 --rescaleL
 """
+
+
+# config_standard_MSMpair (the reference's second basic config: the
+# pairwise rotation regulariser, solved on the fusion pair path) verbatim
+# except the iteration counts, 50,5,10,10 -> 10,3,3,3
+MSMPAIR_STANDARD_ITERS = "50,5,10,10"
+MSMPAIR_CONFIG = f"""\
+--sigma_in=6,6,4,2
+--sigma_ref=6,6,4,2
+--lambda=0,0.1,0.2,0.3
+--it={SMOKE_ITERS}
+--opt=AFFINE,DISCRETE,DISCRETE,DISCRETE
+--CPgrid=0,2,3,4
+--SGgrid=0,4,5,6
+--datagrid=5,5,5,6
+--regoption=1
+"""
+
+# The STRUCTURE of the reference's aMSM longitudinal recipe
+# (NeuroImage2017 aMSM_STR_longitudinal_alignment: regoption 5, triclique,
+# three levels CP 2/3/4, data and anatomical grids 4/5/6) with the strain
+# parameters of config_standard_MSM_strain and --it=2,2,2. The reference's
+# file itself is not in this repository, so this is not that file verbatim.
+AMSM_ITERS = "2,2,2"
+AMSM_CONFIG = f"""\
+--simval=2,2,2
+--sigma_in=2,2,1
+--sigma_ref=2,2,1
+--lambda=0.2,0.2,0.2
+--it={AMSM_ITERS}
+--opt=DISCRETE,DISCRETE,DISCRETE
+--CPgrid=2,3,4
+--SGgrid=4,5,6
+--datagrid=4,5,6
+--anatgrid=4,5,6
+--regoption=5
+--triclique
+--regexp=2
+--dopt=HOCR
+--VN
+--k_exponent=2
+--bulkmod=1.6
+--shearmod=0.4
+"""
+
+# a small-depth MCMC run: two discrete levels, 1280 draws a level
+# (10 sweeps of 128 proposals); the reference default is 100000
+MCMC_CONFIG = """\
+--simval=2,2
+--sigma_in=4,2
+--sigma_ref=4,2
+--lambda=0.2,0.2
+--it=3,3
+--opt=DISCRETE,DISCRETE
+--CPgrid=2,3
+--SGgrid=4,5
+--datagrid=4,5
+--mciters=1280,1280
+--regoption=3
+--regexp=2
+--dopt=MCMC
+--VN
+--k_exponent=2
+--bulkmod=1.6
+--shearmod=0.4
+"""
+
+# one triclique likelihood call at ico-6: 5,120 CP faces x 8 combinations
+# x 48 patch slots
+BIG_CALL_QUERIES = 5120 * 8 * 48
 
 
 class SmokeFailure(RuntimeError):
@@ -160,7 +245,37 @@ def phase_kernel(torch):
               f"res {res}: {int(mism.sum())} face-id mismatches")
         worst_pos = max(worst_pos, pos_err)
 
-    return worst_pos
+    # off the sphere, one large call: the anatomical cost (regoption 5)
+    # queries raw barycentric combinations, and a triclique call at ico-6
+    # is twice the largest unary call
+    res = MAIN_RES
+    ico = icosphere(res)
+    q = torch.randn((BIG_CALL_QUERIES, 3), generator=g, dtype=torch.float32)
+    q = q / torch.linalg.norm(q, dim=1, keepdim=True)
+    radius = 0.5 + 149.5 * torch.rand((BIG_CALL_QUERIES, 1), generator=g)
+    q = (q * radius).to(dev)
+    px, py, pz = (q[:, i].contiguous() for i in range(3))
+    fid_k, *wk = locate.locate_bary(px, py, pz, res)
+    fid_p, *wp = locate.locate_bary_reference(px, py, pz, res)
+    torch.cuda.synchronize()
+    Wk = torch.stack(wk, 1).double().cpu().numpy()
+    Wp = torch.stack(wp, 1).double().cpu().numpy()
+    fk, fp = fid_k.cpu().numpy(), fid_p.cpu().numpy()
+    pos_err = float(np.abs(
+        (ico.coords[ico.faces[fk]] * Wk[..., None]).sum(1)
+        - (ico.coords[ico.faces[fp]] * Wp[..., None]).sum(1)).max())
+    row_err = float(np.abs(Wk.sum(1) - 1.0).max())
+    mism = int((fk != fp).sum())
+    print(f"kernel res {res}, off-sphere radius 0.5..150: queries "
+          f"{BIG_CALL_QUERIES} fid_mismatch {mism} pos_err {pos_err:.3e} "
+          f"row_err {row_err:.3e} min_w {float(Wk.min()):.3e}")
+    check(np.isfinite(Wk).all(), "off-sphere: non-finite weights")
+    check(row_err < 1e-4, f"off-sphere: row sums off by {row_err}")
+    check(pos_err < 2e-4, f"off-sphere: position error {pos_err}")
+    check(Wk.min() >= -1e-4, f"off-sphere: negative weight {Wk.min()}")
+    check(mism <= 1e-4 * BIG_CALL_QUERIES,
+          f"off-sphere: {mism} face-id mismatches")
+    return max(worst_pos, pos_err)
 
 
 def phase_timing(torch, n_queries: int, res: int):
@@ -205,113 +320,299 @@ def _cc(a, b) -> float:
     return float(np.corrcoef(a, b)[0, 1])
 
 
-def phase_main(torch, workdir, warm_runs=0):
-    """The port's main path through its CLI on the card; `warm_runs` more
-    runs in the same process afterwards, timed only."""
-    from newmsm_tpu_torch import cli
-    from newmsm_tpu_torch.core import io as mio
+def write_inputs(workdir, tag, in_mesh, in_data, ref_mesh, ref_data,
+                 anat=None):
+    """Write one subject's GIFTI files; returns the CLI arguments that
+    name them."""
     from newmsm_tpu_torch.core.mesh import Mesh
-    from newmsm_tpu_torch.eval.synth import synth_cohort
-    from newmsm_tpu_torch.ops import locate
-    from newmsm_tpu_torch.ops.unfold import count_folds
-
-    t0 = time.perf_counter()
-    meshes, datasets, template_data = synth_cohort(6, 1, seed=0)
-    template = Mesh.from_icosphere(6)
-    template.true_rescale(100.0)
     paths = {}
-    for name, mesh, data in (("in", meshes[0], datasets[0]),
-                             ("ref", template, template_data)):
-        paths[name] = (os.path.join(workdir, f"{name}.surf.gii"),
-                       os.path.join(workdir, f"{name}.func.gii"))
+    for name, mesh, data in (("in", in_mesh, in_data),
+                             ("ref", ref_mesh, ref_data)):
+        paths[name] = (os.path.join(workdir, f"{tag}_{name}.surf.gii"),
+                       os.path.join(workdir, f"{tag}_{name}.func.gii"))
         mesh.save(paths[name][0])
         Mesh(coords=mesh.coords, faces=mesh.faces, data=data).save(
             paths[name][1])
-    conf = os.path.join(workdir, "config_standard_MSM_strain")
+    args = ["--inmesh", paths["in"][0], "--refmesh", paths["ref"][0],
+            "--indata", paths["in"][1], "--refdata", paths["ref"][1]]
+    if anat is not None:
+        for flag, name, mesh in (("--inanat", "in", anat[0]),
+                                 ("--refanat", "ref", anat[1])):
+            path = os.path.join(workdir, f"{tag}_{name}.anat.surf.gii")
+            mesh.save(path)
+            args += [flag, path]
+    return args
+
+
+def run_path(torch, workdir, tag, inputs, config_text, warm_runs=0,
+             extra=()):
+    """One path through the port's CLI on the card, with the kernel's
+    launch count set to 0 just before and read just after; `warm_runs` more
+    runs in the same process afterwards (tables cached), timed and their
+    stage seconds kept. Returns (output prefix, events, (launches, most
+    queries in one launch), warm events of the last warm run or None)."""
+    from newmsm_tpu_torch import cli
+    from newmsm_tpu_torch.ops import locate
+
+    conf = os.path.join(workdir, f"{tag}.conf")
     with open(conf, "w") as f:
-        f.write(STRAIN_CONFIG)
-    metrics = os.path.join(workdir, "metrics.jsonl")
-    out = os.path.join(workdir, "out_")
-    print(f"main: ico-{meshes[0].get_resolution()} subject, "
-          f"{meshes[0].nvertices} vertices, "
-          f"{datasets[0].shape[0]} channels; inputs written in "
-          f"{time.perf_counter() - t0:.2f} s")
-    print(f"reduced: --it={SMOKE_ITERS} (config_standard_MSM_strain has "
-          f"--it={STANDARD_ITERS}); nothing else cut")
+        f.write(config_text)
 
-    def run_cli(prefix, metrics_path):
+    def run_cli(prefix):
+        metrics = prefix + "metrics.jsonl"
         t0 = time.perf_counter()
-        rc = cli.main(["--inmesh", paths["in"][0], "--refmesh",
-                       paths["ref"][0], "--indata", paths["in"][1],
-                       "--refdata", paths["ref"][1], "-o", prefix, "--conf",
-                       conf, "--metrics", metrics_path, "--device", "cuda"])
+        rc = cli.main([*inputs, "-o", prefix, "--conf", conf, "--metrics",
+                       metrics, "--device", "cuda", *extra])
         torch.cuda.synchronize()
-        check(rc == 0, f"cli returned {rc}")
-        return time.perf_counter() - t0
+        check(rc == 0, f"{tag}: cli returned {rc}")
+        wall = time.perf_counter() - t0
+        return wall, [json.loads(line) for line in open(metrics)]
 
-    locate.LAUNCHES = 0
-    wall = run_cli(out, metrics)
-    launches = locate.LAUNCHES
-    print(f"main: cli wall {wall:.2f} s, locate_bary launches {launches}")
+    out = os.path.join(workdir, f"{tag}_out_")
+    locate.LAUNCHES = locate.LARGEST = 0
+    wall, events = run_cli(out)
+    launches = (locate.LAUNCHES, locate.LARGEST)
+    print(f"{tag}: cli wall {wall:.2f} s, locate_bary launches "
+          f"{launches[0]}, the largest of {launches[1]} queries")
+    check(launches[0] > 0,
+          f"{tag}: the path never launched the locate kernel")
+    warm_events = None
     if warm_runs:
-        warm = [run_cli(os.path.join(workdir, f"warm{i}_"),
-                        os.path.join(workdir, f"warm{i}.jsonl"))
-                for i in range(warm_runs)]
-        print(f"main: {warm_runs} more runs in this process: "
+        warm = []
+        for i in range(warm_runs):
+            w, warm_events = run_cli(os.path.join(workdir, f"{tag}_warm{i}_"))
+            warm.append(w)
+        print(f"{tag}: {warm_runs} more runs in this process: "
               f"{[round(w, 4) for w in warm]} s, median "
               f"{float(np.median(warm)):.4f} s")
+    return out, events, launches, warm_events
 
-    events = [json.loads(line) for line in open(metrics)]
-    for e in events:
-        if e["event"] == "level":
-            print(f"level {e['level']} ({e['cost']}): wall {e['wall_s']} s")
+
+def print_stages(tag, events):
+    """The per-stage seconds of one run's metrics events; returns the
+    energies by level."""
     warp = {(e["level"], e["iter"]): e["warp_s"] for e in events
             if e["event"] == "warp"}
-    energies = []
+    energies = {}
+    for e in events:
+        if e["event"] == "level":
+            print(f"{tag}: level {e['level']} ({e['cost']}): wall "
+                  f"{e['wall_s']} s")
+        elif e["event"] == "anat_setup":
+            print(f"{tag}: level {e['level']} anatomical tables: "
+                  f"{e['wall_s']} s")
+        elif e["event"] == "outputs":
+            print(f"{tag}: outputs written in {e['wall_s']} s")
+        elif e["event"] == "iter":
+            energies.setdefault(e["level"], []).append(e["energy"])
+            extra = ""
+            if "sweeps" in e:
+                extra = (f" volume {e['volume_s']} s, {e['sweeps']} sweeps x "
+                         f"{e['colors']} colours, {e['sweep_s']} s a sweep, "
+                         f"start energy {e['energy_start']:.6f}")
+            print(f"{tag}: iter level {e['level']} it {e['iter']}: energy "
+                  f"{e['energy']:.6f} setup {e['setup_s']} s unary "
+                  f"{e['unary_s']} s optimiser {e['fusion_s']} s warp "
+                  f"{warp.get((e['level'], e['iter']), 'n/a')} s "
+                  f"(cps {e['cps']} labels {e['labels']}){extra}")
+    return energies
+
+
+def check_registration(tag, out, energies, ref_mesh, in_data, ref_data):
+    """Outputs exist, finite energies, a fold-free warp, finite transformed
+    data of the reference's shape, and a raised sulc CC."""
+    from newmsm_tpu_torch.core import io as mio
+    from newmsm_tpu_torch.core.mesh import Mesh
+    from newmsm_tpu_torch.ops.unfold import count_folds
+    flat = [e for es in energies.values() for e in es]
+    check(flat and all(np.isfinite(flat)),
+          f"{tag}: energies not finite: {flat}")
+    for suffix in ("sphere.reg.surf.gii",
+                   "transformed_and_reprojected.func.gii"):
+        check(os.path.exists(out + suffix), f"{tag}: missing output {suffix}")
+    warped = Mesh.load(out + "sphere.reg.surf.gii")
+    folds = count_folds(warped, device="cuda")
+    transformed = mio.load_data(out + "transformed_and_reprojected.func.gii",
+                                ref_mesh)
+    check(transformed.shape == ref_data.shape
+          and np.isfinite(transformed).all(),
+          f"{tag}: transformed data malformed: {transformed.shape}")
+    cc_before = _cc(in_data[0], ref_data[0])
+    cc_after = _cc(transformed[0], ref_data[0])
+    print(f"{tag}: folds {folds}; sulc CC to the reference before "
+          f"{cc_before:.4f} after {cc_after:.4f}")
+    check(folds == 0, f"{tag}: warped sphere has {folds} folds")
+    check(cc_after > cc_before, f"{tag}: the sulc CC was not raised")
+
+
+def phase_main(torch, workdir, subject, warm_runs=0):
+    """The strain path (config_standard_MSM_strain) through the CLI."""
+    inputs, template, in_data, template_data = subject
+    print(f"main: ico-{template.get_resolution()} subject, "
+          f"{template.nvertices} vertices, {in_data.shape[0]} channels")
+    print(f"reduced: --it={SMOKE_ITERS} (config_standard_MSM_strain has "
+          f"--it={STANDARD_ITERS}); nothing else cut")
+    out, events, launches, warm = run_path(torch, workdir, "main", inputs,
+                                           STRAIN_CONFIG, warm_runs)
+    energies = print_stages("main", events)
+    if warm:
+        print_stages("main warm", warm)
     n_queries = 0
     first_setup = {}
     last_level = max(e["level"] for e in events if e["event"] == "iter")
     for e in events:
         if e["event"] == "iter":
             if e["level"] == last_level:
-                # the largest locate call at MAIN_RES: K control points x
-                # lchunk(4) labels x pmax patch slots
+                # the largest unary locate call at MAIN_RES: K control
+                # points x lchunk(4) labels x pmax patch slots
                 n_queries = max(n_queries,
                                 e["cps"] * min(4, e["labels"]) * e["pmax"])
             first_setup.setdefault(e["level"], e["setup_s"])
-            energies.append(e["energy"])
-            print(f"iter level {e['level']} it {e['iter']}: energy "
-                  f"{e['energy']:.6f} setup {e['setup_s']} s unary "
-                  f"{e['unary_s']} s fusion {e['fusion_s']} s warp "
-                  f"{warp.get((e['level'], e['iter']), 'n/a')} s")
+    check(n_queries == launches[1], f"main: the largest locate call had "
+          f"{launches[1]} queries, not {n_queries}")
     print("first set-up seconds of each level (cold host table builds): "
           + ", ".join(f"level {lv}: {t}" for lv, t in first_setup.items()))
-    check(launches > 0, "the main path never launched the locate kernel")
-    check(energies and all(np.isfinite(energies)),
-          f"energies not finite: {energies}")
-    for suffix in ("sphere.reg.surf.gii", "transformed_and_reprojected.func.gii"):
-        check(os.path.exists(out + suffix), f"missing output {suffix}")
-    warped = Mesh.load(out + "sphere.reg.surf.gii")
-    folds = count_folds(warped, device="cuda")
-    transformed = mio.load_data(out + "transformed_and_reprojected.func.gii",
-                                template)
-    check(transformed.shape == template_data.shape
-          and np.isfinite(transformed).all(),
-          f"transformed data malformed: {transformed.shape}")
-    cc_before = _cc(datasets[0][0], template_data[0])
-    cc_after = _cc(transformed[0], template_data[0])
-    print(f"main: folds {folds}; sulc CC to template before {cc_before:.4f} "
-          f"after {cc_after:.4f}")
-    check(folds == 0, f"warped sphere has {folds} folds")
-    check(cc_after > cc_before, "registration did not raise the sulc CC")
+    check_registration("main", out, energies, template, in_data,
+                       template_data)
     return launches, n_queries
+
+
+def phase_msmpair(torch, workdir, subject, warm_runs=0):
+    """This slice's path at full width: config_standard_MSMpair
+    (regoption 1) on the ico-6 subject, last level 2,562 control points and
+    7,680 pairs."""
+    inputs, template, in_data, template_data = subject
+    print(f"reduced: --it={SMOKE_ITERS} (config_standard_MSMpair has "
+          f"--it={MSMPAIR_STANDARD_ITERS}); nothing else cut")
+    out, events, launches, warm = run_path(torch, workdir, "msmpair", inputs,
+                                           MSMPAIR_CONFIG, warm_runs)
+    energies = print_stages("msmpair", events)
+    if warm:
+        print_stages("msmpair warm", warm)
+    gates = [e for e in events if e["event"] == "fold_gate"]
+    for e in gates:
+        print(f"msmpair: fold gate level {e['level']} it {e['iter']}: "
+              f"{e['gated_entries']} gated entries (share "
+              f"{e['gated_fraction']}), chosen on a gated entry "
+              f"{e['chosen_gated']}")
+    check(len(gates) > 0, "msmpair: no fold_gate event")
+    check(all(e["chosen_gated"] == 0 for e in gates),
+          "msmpair: a chosen labeling landed on a FOLDING-gated pair")
+    check(max(e["cps"] for e in events if e["event"] == "iter") == 2562,
+          "msmpair: the last level does not have 2,562 control points")
+    check_registration("msmpair", out, energies, template, in_data,
+                       template_data)
+    return launches
+
+
+def phase_amsm(torch, workdir, warm_runs=0):
+    """The aMSM longitudinal recipe's structure (regoption 5 + triclique)
+    on longitudinal_pair(6) with its anatomical meshes."""
+    from newmsm_tpu_torch.core import io as mio
+    from newmsm_tpu_torch.core.mesh import Mesh
+    from newmsm_tpu_torch.eval.synth import longitudinal_pair
+    in_mesh, in_data, in_anat, ref_mesh, ref_data, ref_anat = \
+        longitudinal_pair(MAIN_RES, seed=0)
+    inputs = write_inputs(workdir, "amsm", in_mesh, in_data, ref_mesh,
+                          ref_data, anat=(in_anat, ref_anat))
+    print("amsm: the STRUCTURE of the reference's aMSM longitudinal recipe "
+          "(regoption 5, triclique, CP 2/3/4, data and anatomical grids "
+          f"4/5/6, --it={AMSM_ITERS}); NOT the reference's config file "
+          "verbatim, which is not in this repository")
+    out, events, launches, warm = run_path(torch, workdir, "amsm", inputs,
+                                           AMSM_CONFIG, warm_runs)
+    energies = print_stages("amsm", events)
+    if warm:
+        print_stages("amsm warm", warm)
+    check_registration("amsm", out, energies, ref_mesh, in_data, ref_data)
+    check(os.path.exists(out + "anat.reg.surf.gii"),
+          "amsm: missing anat.reg.surf.gii")
+    anat_reg = Mesh.load(out + "anat.reg.surf.gii")
+    check(anat_reg.coords.shape == in_mesh.coords.shape
+          and np.isfinite(anat_reg.coords).all(),
+          "amsm: anat.reg.surf.gii malformed")
+    strains = mio.load_data(out + "STRAINS.func.gii", in_mesh)
+    check(strains.shape == (4, in_mesh.nvertices)
+          and np.isfinite(strains).all(),
+          f"amsm: STRAINS.func.gii malformed: {strains.shape}")
+    r_in = np.linalg.norm(in_anat.coords, axis=1)
+    print(f"amsm: anatomical radial CC to the input anatomy before "
+          f"{_cc(np.linalg.norm(ref_anat.coords, axis=1), r_in):.4f} after "
+          f"{_cc(np.linalg.norm(anat_reg.coords, axis=1), r_in):.4f}; "
+          f"STRAINS rows (max stretch, min stretch, Green strains) means "
+          f"{[round(float(x), 4) for x in strains.mean(1)]}")
+    return launches
+
+
+def phase_mcmc(torch, workdir):
+    """One MCMC run at small depth: an ico-5 sphere whose data are the
+    analytic group pattern, the input's rotated by 6 degrees. (On a warped
+    cohort subject the greedy per-triplet sweep raises the energy from one
+    iteration to the next at the second level, in the JAX package as well;
+    a rotation is what this optimiser recovers monotonically.)"""
+    from newmsm_tpu_torch.core.mesh import Mesh
+    from newmsm_tpu_torch.eval.synth import GroupPattern
+    sphere = Mesh.from_icosphere(5)
+    sphere.true_rescale(100.0)
+    unit = sphere.coords / 100.0
+    axis = np.array([0.3, 1.0, 0.2]) / np.linalg.norm([0.3, 1.0, 0.2])
+    skew = np.cross(np.eye(3), axis)
+    ang = np.radians(6.0)
+    rot = np.eye(3) + np.sin(ang) * skew + (1 - np.cos(ang)) * skew @ skew
+    pattern = GroupPattern(0)
+    ref_data, in_data = pattern(unit), pattern(unit @ rot.T)
+    inputs = write_inputs(workdir, "mcmc", sphere, in_data, sphere, ref_data)
+    out, events, launches, _ = run_path(torch, workdir, "mcmc", inputs,
+                                        MCMC_CONFIG)
+    energies = print_stages("mcmc", events)
+    check_registration("mcmc", out, energies, sphere, in_data, ref_data)
+    # each level must end below the energy it began at (every CP at label
+    # 0 of its first iteration). From one iteration to the next the energy
+    # may rise: the label set alternates, and the sweep judges a triplet by
+    # its own cost and a third of its corners' unary costs, not by the
+    # other triplets its corners touch
+    start = {}
+    for e in events:
+        if e["event"] == "iter":
+            start.setdefault(e["level"], e["energy_start"])
+    for level, es in energies.items():
+        print(f"mcmc: level {level} energy from {start[level]:.6f} at its "
+              f"start to {es[-1]:.6f}; last iteration "
+              f"{'not above' if es[-1] <= es[0] else 'ABOVE'} the first")
+        check(es[-1] < start[level], f"mcmc: level {level} ended at "
+              f"{es[-1]}, not below its start {start[level]}")
+    sweeps = [e["sweep_s"] for e in events if e["event"] == "iter"]
+    print(f"mcmc: seconds per sweep, by iteration: {sweeps}")
+
+    # the same run once more under --profile: the trace must hold the
+    # card's kernels; the share of the traced span with a kernel running
+    trace_dir = os.path.join(workdir, "mcmc_trace")
+    run_path(torch, workdir, "mcmc_profiled", inputs, MCMC_CONFIG,
+             extra=("--profile", trace_dir))
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        trace = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in trace
+                   if e.get("cat") == "kernel")
+    check(len(spans) > 0, "mcmc: the --profile trace holds no device kernel")
+    timed = [e for e in trace if "ts" in e and "dur" in e]
+    wall = (max(e["ts"] + e["dur"] for e in timed)
+            - min(e["ts"] for e in timed))
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    print(f"mcmc: --profile trace: {len(trace)} events, {len(spans)} device "
+          f"kernels, device busy {busy / wall:.4f} of the traced "
+          f"{wall / 1e6:.3f} s")
+    return launches
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--warm-runs", type=int, default=0,
-                    help="after the main path, time this many more runs of "
-                         "it in the same process (tables cached)")
+                    help="after the strain, MSMpair and aMSM paths, time "
+                         "this many more runs of each in the same process "
+                         "(tables cached)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -319,21 +620,44 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, HERE)
     import newmsm_tpu_torch  # noqa: F401  (fails outside the repo)
+    from newmsm_tpu_torch.core.mesh import Mesh
+    from newmsm_tpu_torch.eval.synth import synth_cohort
 
     phase_device(torch)
     phase_build()
     max_err = phase_kernel(torch)
+    by_path = {}
     with tempfile.TemporaryDirectory() as workdir:
-        launches, n_queries = phase_main(torch, workdir, args.warm_runs)
+        meshes, datasets, template_data = synth_cohort(MAIN_RES, 1, seed=0)
+        template = Mesh.from_icosphere(MAIN_RES)
+        template.true_rescale(100.0)
+        subject = (write_inputs(workdir, "subject", meshes[0], datasets[0],
+                                template, template_data),
+                   template, datasets[0], template_data)
+        by_path["strain"], n_queries = phase_main(torch, workdir, subject,
+                                                  args.warm_runs)
+        by_path["msmpair"] = phase_msmpair(torch, workdir, subject,
+                                           args.warm_runs)
+        by_path["amsm"] = phase_amsm(torch, workdir, args.warm_runs)
+        by_path["mcmc"] = phase_mcmc(torch, workdir)
     k, plain, roof = phase_timing(torch, n_queries, MAIN_RES)
+    # and at the largest call of the new paths (triclique / anatomical)
+    largest = max(n for _, n in by_path.values())
+    kl, plainl, roofl = phase_timing(torch, largest, MAIN_RES)
     # library_ms: no single PyTorch call computes point location on a
     # subdivision tree plus barycentric weights
     print(json.dumps({"kernels": [{
         "name": "locate_bary", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
+        "replaces": KERNEL_REPLACES,
+        "launches": sum(n for n, _ in by_path.values()),
+        "launches_by_path": {p: n for p, (n, _) in by_path.items()},
+        "largest_call_by_path": {p: q for p, (_, q) in by_path.items()},
         "max_abs_err": max_err, "ms": k["ms"], "plain_ms": plain["ms"],
         "bound_ms": roof["bound_ms"], "bound_by": roof["bound_by"],
-        "library_ms": None, "ms_spread": k["ms_spread"]}]}))
+        "library_ms": None, "ms_spread": k["ms_spread"],
+        "queries": n_queries, "largest_call": {
+            "queries": largest, "ms": kl["ms"], "plain_ms": plainl["ms"],
+            "bound_ms": roofl["bound_ms"], "bound_by": roofl["bound_by"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

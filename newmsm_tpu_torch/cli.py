@@ -6,7 +6,9 @@
         --device cuda
 
 --device defaults to cuda and raises when CUDA is missing; pass
---device cpu to run on the CPU.
+--device cpu to run on the CPU. Every pairwise configuration of the JAX
+package's CLI runs (--inanat/--refanat for regoption 5, --profile DIR for a
+torch.profiler trace); only --groupwise is not ported yet.
 """
 from __future__ import annotations
 
@@ -48,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics", default="",
                    help="write per-iteration JSONL metrics to this file")
     p.add_argument("--profile", default="",
-                   help="device trace directory (not ported yet)")
+                   help="write a torch.profiler trace (Chrome trace JSON, "
+                        "trace.json) to this directory")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
     return p
@@ -70,15 +73,12 @@ def main(argv=None) -> int:
     if args.groupwise:
         raise NotImplementedError("--groupwise is not yet ported to "
                                   "newmsm_tpu_torch (ROADMAP.md queue 1)")
-    if args.profile:
-        raise NotImplementedError("--profile is not yet ported to "
-                                  "newmsm_tpu_torch (ROADMAP.md queue 1)")
-    if args.inanat or args.refanat:
-        raise NotImplementedError("anatomical meshes (aMSM) are not yet "
-                                  "ported to newmsm_tpu_torch (ROADMAP.md "
-                                  "queue 1)")
     if not args.inmesh:
         print("error: --inmesh is required", file=sys.stderr)
+        return 1
+    if bool(args.inanat) != bool(args.refanat):
+        print("error: must supply both anatomical meshes or none",
+              file=sys.stderr)
         return 1
 
     from .reg.driver import MeshRegistration
@@ -87,6 +87,7 @@ def main(argv=None) -> int:
         print(f"This is newmsm_tpu_torch on {mr.device}.")
     mr.verbose = args.verbose
     mr.metrics_path = args.metrics or None
+    mr.profile_dir = args.profile or None
     mr.debug = args.debug
     mr.outdir = args.out
     mr.set_input(args.inmesh)
@@ -95,6 +96,8 @@ def main(argv=None) -> int:
         mr.set_input_data(args.indata)
     if args.refdata:
         mr.set_reference_data(args.refdata)
+    if args.inanat:
+        mr.set_anatomical(args.inanat, args.refanat)
     mr.set_output_format(args.format)
     if args.trans:
         mr.set_transformed(args.trans)

@@ -18,7 +18,7 @@ import torch
 from . import resolve_device
 from .core.mesh import Mesh
 from .ops.nearest import SearchTables
-from .reg.costs import LevelTables
+from .reg.costs import AnatTables, LevelTables
 from .reg.optimise.fusion import FusionTables, color_group_tensors
 
 
@@ -59,18 +59,32 @@ def search_tables(src: Any, device=None) -> SearchTables:
 
 
 def level_tables(src: Any, device=None) -> LevelTables:
-    """newmsm_tpu.reg.costs.LevelTables -> the port's LevelTables (the
-    fields of the pairwise regulariser are not carried)."""
+    """newmsm_tpu.reg.costs.LevelTables -> the port's LevelTables."""
     return LevelTables(
         target_tables=search_tables(_field(src, "target_tables"), device),
         **{name: tensor(_field(src, name), device)
            for name in LevelTables._fields if name != "target_tables"})
 
 
+def anat_tables(src: Any, device=None) -> AnatTables:
+    """newmsm_tpu.reg.costs.AnatTables -> the port's AnatTables."""
+    return AnatTables(
+        anat_sphere=search_tables(_field(src, "anat_sphere"), device),
+        **{name: tensor(_field(src, name), device)
+           for name in AnatTables._fields if name != "anat_sphere"})
+
+
+def _optional(src, name, device):
+    a = _field(src, name)
+    return None if a is None else tensor(a, device)
+
+
 def fusion_tables(src: Any, device=None) -> FusionTables:
-    """newmsm_tpu.reg.optimise.fusion.FusionTables (triplet path) -> the
-    port's FusionTables."""
+    """newmsm_tpu.reg.optimise.fusion.FusionTables -> the port's
+    FusionTables (pair tables carried when present)."""
     return FusionTables(
+        vert_pair=_optional(src, "vert_pair", device),
+        vert_pair_end=_optional(src, "vert_pair_end", device),
         groups=color_group_tensors(np.asarray(_field(src, "vgroups")),
                                    np.asarray(_field(src, "vgroup_mask")),
                                    resolve_device(device)),

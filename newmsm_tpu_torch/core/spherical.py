@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import EPSILON
+from .. import EPSILON, RAD
 
 
 def _cross(a, b):
@@ -21,6 +21,13 @@ def normalize(v, eps=EPSILON):
     n = torch.linalg.norm(v, dim=-1, keepdim=True)
     ok = n > eps
     return torch.where(ok, v / torch.where(ok, n, torch.ones_like(n)), v)
+
+
+def geodesic(a, b, rad=RAD):
+    """Great-circle distance via chord length: 2*R*asin(|a-b| / 2R)
+    (used throughout, e.g. DiscreteModel.cpp:82)."""
+    chord = torch.linalg.norm(a - b, dim=-1)
+    return 2.0 * rad * torch.arcsin((chord / (2.0 * rad)).clamp(-1.0, 1.0))
 
 
 def rodrigues(frm, to, eps=EPSILON):
@@ -103,6 +110,18 @@ def tri_normal(v0, v1, v2, eps=EPSILON):
     return normalize(_cross(v2 - v0, v1 - v0), eps)
 
 
+def same_side(p1, p2, a, b, eps=EPSILON):
+    """same_side test (point.cpp:36-39)."""
+    ab = b - a
+    return (_cross(ab, p1 - a) * _cross(ab, p2 - a)).sum(-1) > -eps
+
+
+def point_in_triangle(p, a, b, c, eps=EPSILON):
+    """(point.cpp:41-44)."""
+    return (same_side(p, a, b, c, eps) & same_side(p, b, c, a, eps)
+            & same_side(p, c, a, b, eps))
+
+
 def point_in_triangle_relative(p, a, b, c, rel_tol=1e-4):
     """Scale-aware containment test: signed sub-areas against the face
     normal, thresholded relative to the squared face area."""
@@ -144,6 +163,18 @@ def barycentric_weights(v1, v2, v3, p):
     total = aa + ab + ac
     total = torch.where(total > 0, total, torch.ones_like(total))
     return torch.stack([aa, ab, ac], dim=-1) / total[..., None]
+
+
+def barycentric_interp(v1, v2, v3, p, f1, f2, f3):
+    """barycentric_interpolation (triangle.cpp:145-157): areas computed at p
+    directly (no plane projection). f* carry one trailing feature dim."""
+    aa = tri_area(p, v2, v3)
+    ab = tri_area(p, v1, v3)
+    ac = tri_area(p, v1, v2)
+    total = aa + ab + ac
+    total = torch.where(total > 0, total, torch.ones_like(total))
+    aa, ab, ac = aa / total, ab / total, ac / total
+    return f1 * aa[..., None] + f2 * ab[..., None] + f3 * ac[..., None]
 
 
 def tangent_basis_from_normal(a, eps=1e-30):

@@ -3,7 +3,7 @@
 The reference validates registration quality on HCP sulc/curv data
 (docs/guide.md:429-440); that data cannot ship with this repo, so the smoke
 run and the tests generate cohorts whose statistics mimic it (the port's
-own copy of `synth_cohort` from the JAX package's eval/synth.py):
+own copy of the JAX package's eval/synth.py):
 
   * ``sulc``-like channel: band-limited smooth field (angular wavelengths
     ~45-120 deg — primary folding pattern scale),
@@ -124,3 +124,91 @@ def synth_cohort(res: int, n_subjects: int, seed: int = 0,
         meshes.append(Mesh(coords=sphere.coords.copy(), faces=sphere.faces))
         datasets.append(data)
     return meshes, datasets, template_data
+
+
+def multimodal_cohort(res: int, n_subjects: int, n_channels: int = 10,
+                      seed: int = 0, warp_deg: float = 9.0,
+                      noise: float = 0.45):
+    """Cohort with D>=3 channels mimicking the HCP MSMAll feature set
+    (myelin + RSN maps + sulc/curv; the reference's
+    config/HCP_multimodal_alignment recipe): channel 0/1 are the sulc/curv
+    pair from ``GroupPattern``; channel 2 is myelin-like (very low frequency,
+    correlated with sulc the way myelin tracks areal boundaries); channels
+    3+ are RSN-connectivity-like mid-frequency maps, mutually decorrelated.
+    All channels ride the SAME per-subject warp, so a multivariate
+    registration can pool evidence across them exactly as MSMAll does.
+    Returns (meshes, datasets (D,N), template_data (D,N))."""
+    sphere = Mesh.from_icosphere(res)
+    sphere.true_rescale(RAD)
+    unit = np.asarray(sphere.coords) / RAD
+    pattern = GroupPattern(seed)
+
+    def channels(u):
+        base = pattern(u)                              # (2,N) sulc/curv
+        out = [base[0], base[1]]
+        rng_m = np.random.default_rng((seed, 101))
+        myelin = (0.5 * _wave_field(u, rng_m, 16, 0.8, 2.0)
+                  + 0.5 * np.tanh(base[0]))
+        out.append(myelin / max(myelin.std(), 1e-9))
+        for c in range(3, n_channels):
+            rng_c = np.random.default_rng((seed, 200 + c))
+            out.append(_wave_field(u, rng_c, 20, 2.0 + 0.5 * (c % 4),
+                                   5.0 + 0.7 * (c % 5)))
+        return np.stack(out)
+
+    template_data = channels(unit)
+    meshes, datasets = [], []
+    for s in range(n_subjects):
+        w = smooth_sphere_warp(unit, seed=seed * 1000 + s,
+                               amplitude_deg=warp_deg)
+        data = channels(w)
+        rng = np.random.default_rng((seed, s, 9))
+        for d in range(data.shape[0]):
+            idio = _wave_field(unit, rng, 12, 2.0, 8.0)
+            data[d] = data[d] + noise * idio
+            data[d] /= data[d].std()
+        meshes.append(Mesh(coords=sphere.coords.copy(), faces=sphere.faces))
+        datasets.append(data)
+    return meshes, datasets, template_data
+
+
+def longitudinal_pair(res: int, seed: int = 0, warp_deg: float = 8.0,
+                      growth: float = 1.15, fold_amp: float = 0.10):
+    """Synthetic longitudinal aMSM case (NeuroImage2017
+    aMSM_STR_longitudinal_alignment: same subject at two timepoints, the
+    later with grown, deeper-folded anatomy). Returns
+    (in_mesh, in_data, in_anat, ref_mesh, ref_data, ref_anat):
+
+      * spheres: identical ico-``res`` spheres (radius 100),
+      * data: one sulc-like channel; timepoint-2 features sit at
+        w(x) so registration should recover w,
+      * anatomy: folded surfaces r(x) = R*(1 + fold_amp*fold(x)); the
+        timepoint-2 anatomy carries the SAME folds at the warped positions,
+        ``growth``-scaled and slightly deepened — so the spherical warp that
+        aligns the data also aligns the anatomies (the aMSM premise).
+    """
+    sphere = Mesh.from_icosphere(res)
+    sphere.true_rescale(RAD)
+    unit = np.asarray(sphere.coords) / RAD
+    pattern = GroupPattern(seed)
+
+    w = smooth_sphere_warp(unit, seed=seed * 77 + 3, amplitude_deg=warp_deg)
+
+    def sulc(u):
+        return pattern(u)[0]
+
+    in_data = sulc(unit)[None, :]
+    ref_data = sulc(w)[None, :]
+    in_data = in_data / in_data.std()
+    ref_data = ref_data / ref_data.std()
+
+    def folded(u, amp, scale):
+        r = RAD * scale * (1.0 + amp * sulc(u))
+        return u * r[:, None]
+
+    in_anat = Mesh(coords=folded(unit, fold_amp, 1.0), faces=sphere.faces)
+    ref_anat = Mesh(coords=folded(w, fold_amp * 1.2, growth),
+                    faces=sphere.faces)
+    in_mesh = Mesh(coords=sphere.coords.copy(), faces=sphere.faces)
+    ref_mesh = Mesh(coords=sphere.coords.copy(), faces=sphere.faces)
+    return in_mesh, in_data, in_anat, ref_mesh, ref_data, ref_anat

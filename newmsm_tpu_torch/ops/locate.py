@@ -21,6 +21,7 @@ SOURCE = "locate_bary.cu"
 KERNEL = "locate_bary_kernel"     # name of the __global__ template
 MAX_RES = 12                      # the kernel is instantiated for 0..MAX_RES
 LAUNCHES = 0        # kernel launches since the last reset (plain int)
+LARGEST = 0         # most queries in one of those launches
 
 
 def locate_bary_reference(px, py, pz, res: int):
@@ -106,7 +107,7 @@ def locate_bary(px, py, pz, res: int):
     """(fid int32, w0, w1, w2) of each query point (any radius) on the
     pristine level-`res` icosphere, shaped like px; weights in face vertex
     order."""
-    global LAUNCHES
+    global LAUNCHES, LARGEST
     dev = px.device
     if dev.type == "cpu":
         return locate_bary_reference(px, py, pz, res)
@@ -129,4 +130,5 @@ def locate_bary(px, py, pz, res: int):
     w0, w1, w2 = (torch.empty_like(px) for _ in range(3))
     launch(fn, px, py, pz, res, tables, fid, w0, w1, w2)
     LAUNCHES += 1
+    LARGEST = max(LARGEST, px.numel())
     return fid, w0, w1, w2

@@ -234,3 +234,33 @@ def sphere_project_warp(sphere: Mesh, frm: Mesh, to: Mesh, device=None) -> Mesh:
     return Mesh(coords=new_coords.cpu().numpy().astype(np.float64),
                 faces=sphere.faces,
                 data=None if sphere.data is None else sphere.data.copy())
+
+
+def _bary_carry(query: Mesh, frm: Mesh, values: np.ndarray, device) -> np.ndarray:
+    """Barycentric weights of `query`'s vertices in `frm`, applied to the
+    per-vertex rows `values` (N_frm,3) -> (N_query,3) float64."""
+    idx, w = barycentric_coords(_f32(query.coords, device),
+                                _tables(frm, device))
+    newp = apply_weights(idx, w, _f32(values.T, device)).T
+    return newp.cpu().numpy().astype(np.float64)
+
+
+def surface_resample(anat_orig: Mesh, sph_orig: Mesh, sph_low: Mesh,
+                     device=None) -> Mesh:
+    """Resample an anatomical mesh through sphere correspondence
+    (resampler.cpp:284-302)."""
+    device = resolve_device(device)
+    return Mesh(coords=_bary_carry(sph_low, sph_orig, anat_orig.coords, device),
+                faces=sph_low.faces,
+                data=None if sph_low.data is None else sph_low.data.copy())
+
+
+def project_anatomical_mesh(orig: Mesh, target: Mesh, anat: Mesh,
+                            device=None) -> Mesh:
+    """(resampler.cpp:260-282): barycentric weights of orig vertices in
+    target, applied to anat coordinates (anat must match target's count)."""
+    device = resolve_device(device)
+    src = anat if anat.nvertices == target.nvertices else target
+    return Mesh(coords=_bary_carry(orig, target, src.coords, device),
+                faces=orig.faces,
+                data=None if orig.data is None else orig.data.copy())

@@ -16,6 +16,11 @@ import torch
 from ..core import spherical as sph
 
 
+def _tangent_frame(normal):
+    """calculate_tri from a normal (reg_tools.cpp:267-313) -> (e1, e2)."""
+    return sph.tangent_basis_from_normal(normal)
+
+
 def _project_2d(verts, e1, e2, det_ref):
     """Tangent-plane coordinates of triangle vertices (...,3,3); the two
     columns swap when det([e1 e2 n]) of the ORIGINAL frame is negative
@@ -70,9 +75,43 @@ def triangular_strain(orig_verts, final_verts, mu, kappa, k_exp):
                          orig_verts[..., 2, :])
     n_f = sph.tri_normal(final_verts[..., 0, :], final_verts[..., 1, :],
                          final_verts[..., 2, :])
-    e1o, e2o = sph.tangent_basis_from_normal(n_o)
-    e1f, e2f = sph.tangent_basis_from_normal(n_f)
+    e1o, e2o = _tangent_frame(n_o)
+    e1f, e2f = _tangent_frame(n_f)
     det_o = _frame_det(e1o, e2o, n_o)
     ax, ay = _project_2d(orig_verts, e1o, e2o, det_o)
     bx, by = _project_2d(final_verts, e1f, e2f, det_o)
     return triangle_strain_2d(ax, ay, bx, by, mu, kappa, k_exp)
+
+
+def principal_strains_2d(ax, ay, bx, by):
+    """Principal (Green-Lagrange) strains of the 2-D deformation, closed form
+    (reg_tools.cpp:598-643). Returns (emax, emin)."""
+    c0 = ax[..., 1] - ax[..., 0]
+    c1 = ay[..., 1] - ay[..., 0]
+    c2 = ax[..., 2] - ax[..., 1]
+    c3 = ay[..., 2] - ay[..., 1]
+    c4 = ax[..., 2] - ax[..., 0]
+    c5 = ay[..., 2] - ay[..., 0]
+    c0c = bx[..., 1] - bx[..., 0]
+    c1c = by[..., 1] - by[..., 0]
+    c2c = bx[..., 2] - bx[..., 1]
+    c3c = by[..., 2] - by[..., 1]
+    c4c = bx[..., 2] - bx[..., 0]
+    c5c = by[..., 2] - by[..., 0]
+
+    a = torch.stack([
+        torch.stack([2 * c0 * c0, 2 * c1 * c1, 4 * c0 * c1], -1),
+        torch.stack([2 * c2 * c2, 2 * c3 * c3, 4 * c2 * c3], -1),
+        torch.stack([2 * c4 * c4, 2 * c5 * c5, 4 * c4 * c5], -1),
+    ], -2)
+    bvec = torch.stack([
+        c0c**2 + c1c**2 - c0**2 - c1**2,
+        c2c**2 + c3c**2 - c2**2 - c3**2,
+        c4c**2 + c5c**2 - c4**2 - c5**2,
+    ], -1)
+    e = torch.linalg.solve(a, bvec[..., None])[..., 0]
+    e11, e22, e12 = e[..., 0], e[..., 1], e[..., 2]
+    x = e11 + e22
+    y = e11 - e22
+    root = torch.sqrt((y / 2) ** 2 + e12**2)
+    return x / 2 + root, x / 2 - root

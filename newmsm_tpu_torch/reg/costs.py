@@ -1,13 +1,17 @@
-"""MRF cost volumes for discrete surface registration, on the HOCR /
-triplet-strain path.
+"""MRF cost volumes for discrete surface registration.
 
-Port of the parts of newmsm_tpu/reg/costs.py that path runs:
+Port of newmsm_tpu/reg/costs.py; each term is one batched computation
+producing the tensor the optimisers consume:
 
-  unary    (K, L)   patch rotate -> pristine locate (the CUDA kernel) ->
-                    barycentric target gather -> similarity
-  triplet  (T, C)   folding gate + closed-form strain
+  unary    (K, L)      patch rotate -> pristine locate (the CUDA kernel) ->
+                       barycentric target gather -> similarity
+  triplet  (T, ...)    folding gate + closed-form strain (spherical, or on
+                       the anatomy for regoption 5), + triclique likelihood
+  pairwise (Pr, L, L)  label-rotation difference + folding gate
 
-The exact target gather is used throughout (the JAX package's blocked
+Every lookup on a pristine icosphere (unary, triclique, the anatomical
+sphere of regoption 5) goes through ops/locate.py::locate_bary. The exact
+target gather is used throughout (the JAX package's blocked
 gather, ops/blocked.py, exists for the TPU's gather rate and is not
 ported). The patch helpers (`_ball_table_np`, `patch_candidate_ball`) are
 host numpy; their dense float64 searches (`_ball_cover`,
@@ -27,6 +31,7 @@ from ..core import spherical as sph
 from ..core.icosphere import _NVERT_TO_RES, icosphere
 from ..ops import similarity as simi
 from ..ops.nearest import (SearchTables, _bfs_ball, _search,
+                           barycentric_coords, nearest_triangle,
                            resample_pristine_soa)
 from ..ops.strain import triangular_strain
 
@@ -45,7 +50,11 @@ class LevelTables(NamedTuple):
     source_data: torch.Tensor       # (D,N)
     orig_cp: torch.Tensor           # (K,3) level-start CP grid
     triplets: torch.Tensor          # (T,3) sorted CP vertex ids
+    pairs: torch.Tensor             # (Pr,2) CP edges
+    cp_faces: torch.Tensor          # (T,3) CP faces in native order
+    cp_tri_idx: torch.Tensor        # (K,MT) incident CP faces, -1 padded
     maxsep: torch.Tensor            # (K,) per-CP max spacing (level init)
+    mvd_max: torch.Tensor           # scalar
 
 
 def _arc(chord):
@@ -197,8 +206,12 @@ def rotated_label_positions(cp_coords, labels, centre):
 # --------------------------------------------------------------------------
 
 def _resample_target(points, tables: SearchTables, target_data):
-    """Barycentric-interpolate target data at points (...,3) -> (..., D)
-    through the general search (deformed targets)."""
+    """Barycentric-interpolate target data at points (...,3) -> (..., D):
+    the locate kernel's path for pristine-icosphere targets, the general
+    search for deformed ones."""
+    if tables.pristine_res >= 0:
+        return resample_pristine_soa(points[..., 0], points[..., 1],
+                                     points[..., 2], tables, target_data)
     shape = points.shape[:-1]
     flat = points.reshape(-1, 3)
     tri, _, vc = _search(flat, tables)
@@ -217,11 +230,11 @@ def unary_costs(cp_coords, rl, src_coords, patch_idx, patch_mask,
 
     mode 'univariate': weighted sim of scalar patches
     (DiscreteCostFunction.cpp:325-383); 'multivariate': mean over the patch
-    of per-vertex feature-vector sims (:385-458). rl (K,L,3) rotated label
+    of per-vertex feature-vector sims (:385-458); 'patchwise': mean over
+    channels of per-channel patch sims (:620-692). rl (K,L,3) rotated label
     positions; cfweights (Dw,N) source weighting (Dw == 1 or D)."""
-    if mode not in ("univariate", "multivariate"):
-        raise NotImplementedError(f"unary mode {mode!r} is not ported yet "
-                                  "(ROADMAP.md queue 1)")
+    if mode not in ("univariate", "multivariate", "patchwise"):
+        raise ValueError(mode)
     K, L = rl.shape[0], rl.shape[1]
     D = src_data.shape[0]
 
@@ -253,6 +266,13 @@ def unary_costs(cp_coords, rl, src_coords, patch_idx, patch_mask,
             mask = m[:, None, :].expand(shp)
             out.append(simi.sim_for_min(a, tgt[..., 0], w, mask, simval,
                                         percentile))
+        elif mode == "patchwise":
+            b = tgt.permute(0, 1, 3, 2)                # (K,lc,D,P)
+            a = src_patch.permute(1, 0, 2)[:, None].expand(b.shape)
+            w = w_patch[0][:, None, None, :].expand(b.shape)
+            mask = m[:, None, None, :].expand(b.shape)
+            out.append(simi.sim_for_min(a, b, w, mask, simval,
+                                        percentile).mean(-1))
         else:
             a = src_patch.permute(1, 2, 0)[:, None].expand(tgt.shape)
             wd = w_patch.permute(1, 2, 0)              # (K,P,Dw)
@@ -284,6 +304,34 @@ def triplet_combo_costs(rl, cp_coords, tables: LevelTables, la, lb, lc,
                                         fixnan=fixnan)
 
 
+def _folded(va, vb, vc, cur):
+    """Folding gate: deformed corners (T,C,3) against the normals of the
+    CURRENT corner coords cur (T,3,3) -> (T,C) bool."""
+    n_cur = sph.tri_normal(cur[:, 0], cur[:, 1], cur[:, 2])
+    n_def = sph.tri_normal(va, vb, vc)
+    return (n_def * n_cur[:, None, :]).sum(-1) < 0.0
+
+
+def _gated_cost(cost, folded, reglambda, fixnan):
+    if fixnan:
+        cost = torch.where(torch.isnan(cost), torch.full_like(cost, FIX_NAN),
+                           cost)
+    return torch.where(folded, torch.full_like(cost, FOLDING * reglambda),
+                       cost)
+
+
+def _strain_costs(va, vb, vc, cur, orig, reglambda, mu, kappa, k_exp, rexp,
+                  fixnan=False):
+    """lambda * strain^rexp of the deformed corners (T,C,3) against the
+    level-start corners orig (T,3,3), FOLDING where the triangle flips
+    against the current corners cur (T,3,3)."""
+    orig_b = orig[:, None].expand(va.shape[:2] + (3, 3))
+    deformed = torch.stack([va, vb, vc], dim=-2)
+    strain = triangular_strain(orig_b, deformed, mu, kappa, k_exp)
+    return _gated_cost(reglambda * torch.pow(strain, rexp),
+                       _folded(va, vb, vc, cur), reglambda, fixnan)
+
+
 def triplet_costs_from_positions(va, vb, vc, cp_coords, tables: LevelTables,
                                  reglambda, mu, kappa, k_exp, rexp,
                                  fixnan=False):
@@ -291,17 +339,245 @@ def triplet_costs_from_positions(va, vb, vc, cp_coords, tables: LevelTables,
     the CURRENT CP grid, strain vs the level-start grid,
     cost = lambda * strain^rexp."""
     t = tables.triplets
-    cur = cp_coords[t]                                 # (T,3,3)
-    n_cur = sph.tri_normal(cur[:, 0], cur[:, 1], cur[:, 2])
-    n_def = sph.tri_normal(va, vb, vc)
-    folded = (n_def * n_cur[:, None, :]).sum(-1) < 0.0
+    return _strain_costs(va, vb, vc, cp_coords[t], tables.orig_cp[t],
+                         reglambda, mu, kappa, k_exp, rexp, fixnan)
 
-    orig_b = tables.orig_cp[t][:, None].expand(va.shape[:2] + (3, 3))
-    deformed = torch.stack([va, vb, vc], dim=-2)
-    strain = triangular_strain(orig_b, deformed, mu, kappa, k_exp)
-    cost = reglambda * torch.pow(strain, rexp)
-    if fixnan:
-        cost = torch.where(torch.isnan(cost), torch.full_like(cost, FIX_NAN),
-                           cost)
-    return torch.where(folded, torch.full_like(cost, FOLDING * reglambda),
-                       cost)
+
+def triplet_volume_arrays(rl, trip, cur, orig, reglambda, mu, kappa, k_exp,
+                          rexp):
+    """(Tc, L^3) strain cost block from explicit per-triplet arrays.
+    trip (Tc,3) CP vertex ids into rl; cur/orig (Tc,3,3) current/level-start
+    corner coords."""
+    L = rl.shape[1]
+    ar = torch.arange(L, device=rl.device)
+    la = ar.repeat_interleave(L * L)
+    lb = ar.repeat_interleave(L).repeat(L)
+    lc = ar.repeat(L * L)
+    va = rl[trip[:, 0][:, None], la[None, :]]
+    vb = rl[trip[:, 1][:, None], lb[None, :]]
+    vc = rl[trip[:, 2][:, None], lc[None, :]]
+    return _strain_costs(va, vb, vc, cur, orig, reglambda, mu, kappa, k_exp,
+                         rexp)
+
+
+def triplet_cost_volume(rl, cp_coords, tables: LevelTables, reglambda, mu,
+                        kappa, k_exp, rexp, tchunk: int = 256):
+    """Full (T, L, L, L) strain cost volume for MCMC, built `tchunk`
+    triplets at a time (the (3,3) intermediates of T x L^3 entries would
+    not fit at once)."""
+    L = rl.shape[1]
+    t = tables.triplets
+    cur = cp_coords[t]
+    orig = tables.orig_cp[t]
+    out = [triplet_volume_arrays(rl, t[s:s + tchunk], cur[s:s + tchunk],
+                                 orig[s:s + tchunk], reglambda, mu, kappa,
+                                 k_exp, rexp)
+           for s in range(0, t.shape[0], tchunk)]
+    return torch.cat(out).reshape(-1, L, L, L)
+
+
+# --------------------------------------------------------------------------
+# pairwise regulariser (regmode 1 / FastPD path)
+# --------------------------------------------------------------------------
+
+def pairwise_cost_volume(rl, cp_coords, tables: LevelTables, reglambda, rexp,
+                         pchunk: int = 128):
+    """(Pr, L, L) rotation-difference regulariser with folding gate
+    (computePairwiseCost, DiscreteCostFunction.cpp:190-226).
+
+    Folding is checked on the faces incident to the pair's FIRST node with
+    both endpoints moved, against the level-start grid normals (the
+    reference's use of _oCPgrid). The (pc,MT,3,L,L,3) gate intermediates
+    are built `pchunk` pairs at a time."""
+    eps = 1e-8
+    rot_node = sph.rodrigues(cp_coords[:, None, :].expand(rl.shape), rl)
+
+    theta_mvd = 2.0 * torch.arcsin(tables.mvd_max / (2.0 * RAD))
+    cpf = tables.cp_faces
+    nf = cpf.shape[0]
+    o_n = sph.tri_normal(tables.orig_cp[cpf[:, 0]], tables.orig_cp[cpf[:, 1]],
+                         tables.orig_cp[cpf[:, 2]])    # level-start normals
+
+    out = []
+    for s in range(0, tables.pairs.shape[0], pchunk):
+        pr = tables.pairs[s:s + pchunk]
+        i, j = pr[:, 0], pr[:, 1]                      # (pc,)
+        # trace(R1^T R2) over every label pair
+        tr = torch.einsum("paij,pbij->pab", rot_node[i], rot_node[j])
+        cos_t = ((tr - 1.0) / 2.0).clamp(-1.0, 1.0)
+        theta = torch.arccos(cos_t)
+        smooth = reglambda * torch.pow(math.sqrt(2.0) * theta / theta_mvd,
+                                       rexp)
+        active = (1.0 - cos_t).abs() > eps             # rotations differ
+
+        # folding gate: faces incident to node i with endpoints i,j moved,
+        # tested against the level-start normals (only when active)
+        fidx = tables.cp_tri_idx[i]                    # (pc,MT)
+        fsafe = fidx.clamp(0, nf - 1)
+        fv = cpf[fsafe]                                # (pc,MT,3v)
+        base = cp_coords[fv]                           # (pc,MT,3v,3)
+        is_i = (fv == i[:, None, None])[..., None, None, None]
+        is_j = (fv == j[:, None, None])[..., None, None, None]
+        # corner coords per (pc,MT,3v,La,Lb,3)
+        pos = base[:, :, :, None, None, :]
+        pos = torch.where(is_i, rl[i][:, None, None, :, None, :], pos)
+        pos = torch.where(is_j, rl[j][:, None, None, None, :, :], pos)
+        n_new = sph.tri_normal(pos[:, :, 0], pos[:, :, 1], pos[:, :, 2])
+        dot = (n_new * o_n[fsafe][:, :, None, None, :]).sum(-1)
+        valid = (fidx >= 0)[:, :, None, None]
+        fold_any = ((dot < 0.0) & valid).any(dim=1)    # (pc,L,L)
+        out.append(torch.where(
+            active, torch.where(fold_any, torch.full_like(smooth, FOLDING),
+                                smooth), torch.zeros_like(smooth)))
+    return torch.cat(out)
+
+
+# --------------------------------------------------------------------------
+# triclique likelihood (--triclique)
+# --------------------------------------------------------------------------
+
+def build_face_patches(src_coords, cp_tables: SearchTables, fmax: int):
+    """Assign each source vertex to its closest CP-grid face and invert to
+    padded per-face index lists (HO get_source_data,
+    DiscreteCostFunction.cpp:468-485): a face keeps its first `fmax`
+    vertices in vertex order (stable sort).
+    Returns (face_idx (F,fmax) int64, mask (F,fmax), overflow (F,))."""
+    F = cp_tables.faces.shape[0]
+    N = src_coords.shape[0]
+    dev = src_coords.device
+    face_of = nearest_triangle(src_coords, cp_tables).long()     # (N,)
+    f_sorted, order = torch.sort(face_of, stable=True)
+    counts = torch.bincount(f_sorted, minlength=F)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(N, device=dev) - starts[f_sorted]
+    keep = pos < fmax                                  # beyond fmax: dropped
+    flat = (f_sorted * fmax + pos)[keep]               # distinct slots
+    idx = torch.zeros(F * fmax, dtype=torch.int64, device=dev)
+    mask = torch.zeros(F * fmax, dtype=torch.bool, device=dev)
+    idx[flat] = order[keep]
+    mask[flat] = True
+    return idx.reshape(F, fmax), mask.reshape(F, fmax), counts > fmax
+
+
+def triclique_likelihood(cp_coords, rl, tables: LevelTables, face_idx,
+                         face_mask, src_coords, abs_weights, cfweights,
+                         la, lb, lc, simval: int, percentile=0.75,
+                         multivariate: bool = False):
+    """Triangular-patch likelihood (HO*::triplet_likelihood,
+    DiscreteCostFunction.cpp:487-531 / :565-618): project each patch point
+    onto the CURRENT CP triangle's plane, re-evaluate its barycentric
+    position at the deformed corners, re-project to the sphere, resample the
+    target there and compare with the source patch. la/lb/lc: (T,C).
+    Returns (T,C)."""
+    t = tables.triplets
+    src_pts = src_coords[face_idx]                               # (T,Pf,3)
+
+    cp0, cp1, cp2 = (cp_coords[t[:, i]][:, None, :] for i in range(3))
+    sp = sph.project_to_plane(src_pts, cp0, cp1, cp2)            # (T,Pf,3)
+
+    # barycentric areas at sp wrt the CURRENT triangle (triangle.cpp:159-172)
+    aa = sph.tri_area(sp, cp1, cp2)
+    ab = sph.tri_area(sp, cp0, cp2)
+    ac = sph.tri_area(sp, cp0, cp1)
+    tot = aa + ab + ac
+    tot = torch.where(tot > 0, tot, torch.ones_like(tot))
+    wa, wb, wc = aa / tot, ab / tot, ac / tot                    # (T,Pf)
+
+    na = rl[t[:, 0][:, None], la]                                # (T,C,3)
+    nb = rl[t[:, 1][:, None], lb]
+    nc = rl[t[:, 2][:, None], lc]
+    newp = (na[:, :, None, :] * wa[:, None, :, None]
+            + nb[:, :, None, :] * wb[:, None, :, None]
+            + nc[:, :, None, :] * wc[:, None, :, None])          # (T,C,Pf,3)
+    newp = sph.normalize(newp) * RAD
+
+    tgt = _resample_target(newp, tables.target_tables,
+                           tables.target_data)                   # (T,C,Pf,D)
+    src_patch = tables.source_data[:, face_idx]                  # (D,T,Pf)
+    w_patch = cfweights[:, face_idx]                             # (Dw,T,Pf)
+    m = face_mask.to(tgt.dtype)
+
+    if not multivariate:
+        shp = tgt.shape[:3]
+        sim = simi.sim_for_min(src_patch[0][:, None, :].expand(shp),
+                               tgt[..., 0],
+                               w_patch[0][:, None, :].expand(shp),
+                               m[:, None, :].expand(shp), simval,
+                               percentile)                       # (T,C)
+    else:
+        D = tgt.shape[-1]
+        a = src_patch.permute(1, 2, 0)[:, None].expand(tgt.shape)
+        wd = w_patch.permute(1, 2, 0)
+        if wd.shape[-1] != D:
+            wd = wd[..., :1].expand(wd.shape[:-1] + (D,))
+        per_vtx = simi.sim_for_min(a, tgt, wd[:, None].expand(tgt.shape),
+                                   torch.ones_like(a), simval, percentile)
+        mm = m[:, None, :]
+        sim = (per_vtx * mm).sum(-1) / torch.clamp(mm.sum(-1), min=1.0)
+
+    aw = (abs_weights[t[:, 0]] + abs_weights[t[:, 1]]
+          + abs_weights[t[:, 2]])[:, None] / 3.0
+    return aw * sim
+
+
+# --------------------------------------------------------------------------
+# anatomical (aMSM) regulariser, regmode 5
+# --------------------------------------------------------------------------
+
+class AnatTables(NamedTuple):
+    """Static aMSM state (resample_anatomy, mesh_registration.cpp:250-332)."""
+    lineage: torch.Tensor       # (T, Fd) descendant anat faces per CP face
+    anat_faces: torch.Tensor    # (Ta,3) anat-ico faces
+    anat_bary: torch.Tensor     # (Va,3) barycentric weights wrt parent CP tri
+    anat_parent: torch.Tensor   # (Va,3) CP vertex ids the weights refer to
+    anat_sphere: SearchTables   # pristine anat-res sphere (aICO)
+    anat_target: torch.Tensor   # (Va,3) reference anatomical coords
+    anat_orig: torch.Tensor     # (Va,3) input anatomical coords (resampled)
+
+
+def anatomical_triplet_costs(cp_coords, rl, tables: LevelTables,
+                             anat: AnatTables, la, lb, lc, reglambda, mu,
+                             kappa, k_exp, rexp, fixnan=False):
+    """regmode 5 triplet cost (computeTripletCost case 4/5 + deform_anatomy,
+    DiscreteCostFunction.cpp:169-182,255-301): move anat vertices with the
+    deformed CP corners via their subdivision barycentrics, re-project
+    through the pristine anat sphere onto the reference anatomy, and average
+    the strain of the descendant anatomical faces. Returns (T,C)."""
+    t = tables.triplets
+    T, C = la.shape
+    Fd = anat.lineage.shape[1]
+
+    # folding gate on the CP triangle itself (same as the spherical path)
+    va = rl[t[:, 0][:, None], la]
+    vb = rl[t[:, 1][:, None], lb]
+    vc = rl[t[:, 2][:, None], lc]
+    folded = _folded(va, vb, vc, cp_coords[t])
+
+    # anat vertices of the descendant faces: (T,Fd,3v)
+    fv = anat.anat_faces[anat.lineage]
+    wgt = anat.anat_bary[fv]                         # (T,Fd,3v,3w)
+    par = anat.anat_parent[fv]                       # (T,Fd,3v,3w) CP ids
+
+    # each anat vertex moves with its OWN parent face's corners: corners
+    # belonging to this triplet take their deformed positions, others stay
+    # at the current CP grid. (The reference zeroes mismatched corners via
+    # std::map default-construction, a documented bug — deform_anatomy,
+    # DiscreteCostFunction.cpp:255-301 "bugs expected"; keeping neighbours
+    # fixed is the well-defined completion of the same semantics.)
+    newp = cp_coords[par][:, None]                   # (T,1,Fd,3v,3w,3)
+    for corner, vdef in ((0, va), (1, vb), (2, vc)):
+        is_c = par == t[:, corner][:, None, None, None]      # (T,Fd,3v,3w)
+        newp = torch.where(is_c[:, None, ..., None],
+                           vdef[:, :, None, None, None, :], newp)
+    # (T,C,Fd,3v,3): NOT renormalised (the reference keeps the raw
+    # barycentric combination before the sphere lookup)
+    newp = (newp * wgt[:, None, ..., None]).sum(-2)
+
+    tv, w = barycentric_coords(newp.reshape(-1, 3), anat.anat_sphere)
+    trans = (anat.anat_target[tv] * w[..., None]).sum(1).reshape(
+        T, C, Fd, 3, 3)
+
+    orig_b = anat.anat_orig[fv][:, None].expand(trans.shape)  # (T,C,Fd,3v,3)
+    strain = triangular_strain(orig_b, trans, mu, kappa, k_exp)  # (T,C,Fd)
+    cost = reglambda * torch.pow(strain.mean(-1), rexp)
+    return _gated_cost(cost, folded, reglambda, fixnan)

@@ -1,10 +1,10 @@
 """Discrete MRF model state and per-iteration setup for pairwise
 registration (NonLinearSRegDiscreteModel, DiscreteModel.cpp).
 
-Port of newmsm_tpu/reg/model.py for the HOCR / triplet-strain path. Holds
-the per-level tables (LevelTables, fusion tables, sampling grid) on one
+Port of newmsm_tpu/reg/model.py. Holds the per-level tables (LevelTables,
+fusion tables, face colour groups, sampling grid, anatomical tables) on one
 device and produces each iteration's inputs: labels, rotations, patches,
-cost-function weighting.
+face patches, cost-function weighting.
 
 Not carried over from the JAX package: label-shape bucketing (it only lets
 XLA reuse one compiled program across label counts) and the blocked-gather
@@ -22,6 +22,7 @@ from ..core.mesh import Mesh
 from ..ops import resample as rsp
 from ..ops.nearest import build_tables
 from . import costs as C
+from .optimise.coloring import color_groups, face_coloring
 from .optimise.fusion import FusionTables, bits, build_fusion_tables
 from .sampling_grid import build_sampling_grid, rescale_labels
 
@@ -38,6 +39,8 @@ class ModelConfig:
     rexp: float = 2.0        # --regexp
     cprange: float = 1.0
     percentile: float = 0.75
+    triclique: bool = False
+    patchwise: bool = False
     rescale_labels: bool = False
     multivariate: bool = False
     fixnan: bool = False
@@ -53,11 +56,6 @@ class PairwiseModel:
     def __init__(self, cfg: ModelConfig, cp_grid: Mesh, source: Mesh,
                  target: Mesh, feat_src: np.ndarray, feat_ref: np.ndarray,
                  device=None):
-        if cfg.regmode not in (2, 3):
-            raise NotImplementedError(
-                f"regoption {cfg.regmode} is not ported yet; the port runs "
-                "the triplet-strain regulariser (regoption 2/3), see "
-                "ROADMAP.md queue 1")
         self.cfg = cfg
         self.device = resolve_device(device)
         dev = self.device
@@ -78,16 +76,37 @@ class PairwiseModel:
         # triplets: sorted CP face ids (DiscreteModel.cpp:293-308)
         trip = np.sort(cp_grid.faces.astype(np.int32), axis=1)
         self.triplets_np = trip
+        # pairs: CP edges, sorted (DiscreteModel.cpp:271-291)
+        f = cp_grid.faces.astype(np.int64)
+        edges = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]],
+                                        f[:, [0, 2]]]), axis=1)
+        self.pairs_np = np.unique(edges, axis=0).astype(np.int32)
+
+        def ids(a):
+            return torch.as_tensor(np.asarray(a).astype(np.int64)).to(dev)
+
         self.tables = C.LevelTables(
             target_tables=build_tables(target.coords, target.faces,
                                        target.adjacency[2], dev),
             target_data=torch.as_tensor(feat_ref, dtype=torch.float32).to(dev),
             source_data=torch.as_tensor(feat_src, dtype=torch.float32).to(dev),
             orig_cp=torch.as_tensor(cp_grid.coords, dtype=torch.float32).to(dev),
-            triplets=torch.as_tensor(trip.astype(np.int64)).to(dev),
+            triplets=ids(trip),
+            pairs=ids(self.pairs_np),
+            cp_faces=ids(cp_grid.faces),
+            cp_tri_idx=ids(cp_grid.adjacency[2]),
             maxsep=torch.as_tensor(self.maxsep, dtype=torch.float32).to(dev),
+            mvd_max=torch.as_tensor(self.mvd_max, dtype=torch.float32).to(dev),
         )
-        self.fusion_tables: FusionTables = build_fusion_tables(trip, K, dev)
+
+        self.pairwise_mode = cfg.regmode == 1
+        self.fusion_tables: FusionTables = build_fusion_tables(
+            trip if not self.pairwise_mode else np.zeros((0, 3), np.int32),
+            K, dev, pairs=self.pairs_np if self.pairwise_mode else None)
+        # conflict-free triplet groups for the MCMC sweep
+        fgroups, fmask = color_groups(face_coloring(trip, K))
+        self.face_groups = ids(fgroups)              # (C,G), -1 padded
+        self.face_group_mask = torch.from_numpy(fmask).to(dev)
 
         # patch capacity: exact level-init in-range count + 25% deformation
         # margin, rounded to 16
@@ -100,6 +119,12 @@ class PairwiseModel:
         self.scale = 1.0
         self.labeling = np.zeros(K, np.int64)
         self._warned_overflow = False
+        self.anat: "C.AnatTables | None" = None   # set by driver for regmode 5
+        if cfg.triclique:
+            density = source.nvertices / trip.shape[0]
+            self.fmax = int(min(source.nvertices, max(16, 6 * density)))
+        else:
+            self.fmax = 0
 
     # -- per-iteration pieces ------------------------------------------------
 
@@ -175,29 +200,65 @@ class PairwiseModel:
             cfweights=torch.as_tensor(cfweights, dtype=torch.float32).to(dev),
             abs_weights=torch.as_tensor(absw, dtype=torch.float32).to(dev),
         )
+        if cfg.triclique:
+            # per-CP-face source patches (rebuilt each iteration: the CP
+            # grid moves; HO get_source_data, DiscreteCostFunction.cpp:468)
+            cp_search = build_tables(self.cp_grid.coords, self.cp_grid.faces,
+                                     self.cp_grid.adjacency[2], dev)
+            fidx, fmask, foverflow = C.build_face_patches(src, cp_search,
+                                                          self.fmax)
+            if not self._warned_overflow and bool(foverflow.any()):
+                print("warning: face patch capacity overflow; increase fmax")
+                self._warned_overflow = True
+            s["face_idx"], s["face_mask"] = fidx, fmask
         self.iter += 1
         return s
 
     def unary(self, s) -> torch.Tensor:
         cfg = self.cfg
+        if cfg.triclique:
+            # triclique mode has no unary data term (DiscreteCostFunction.h:220)
+            return torch.zeros((s["cp"].shape[0], s["labels"].shape[0]),
+                               dtype=torch.float32, device=self.device)
+        mode = ("patchwise" if cfg.patchwise else
+                "multivariate" if cfg.multivariate else "univariate")
         return C.unary_costs(
             s["cp"], s["rl"], s["src"], s["patch_idx"], s["patch_mask"],
             self.tables.target_tables, self.tables.source_data,
             self.tables.target_data, s["cfweights"], s["abs_weights"],
-            cfg.simval, cfg.percentile,
-            mode="multivariate" if cfg.multivariate else "univariate")
+            cfg.simval, cfg.percentile, mode=mode)
 
     def triplet_combo_fn(self, s):
-        """Triplet strain costs for label-index arrays, with the binary-move
-        specialisation `binary_fast` attached (see fusion.binary_move_tables)."""
+        """Triplet costs for label-index arrays (T,C): the spherical strain
+        regulariser (regoption 2/3) or the anatomical one (regoption 5),
+        plus the triclique likelihood under --triclique. The plain strain
+        regulariser carries the binary-move specialisation `binary_fast`
+        (see fusion.binary_move_tables); the others take the generic (T,8)
+        label path."""
         cfg = self.cfg
         rl, cp = s["rl"], s["cp"]
         t = self.tables.triplets
         args = (cfg.reglambda, cfg.mu, cfg.kappa, cfg.k_exp, cfg.rexp)
 
         def regulariser(la, lb, lc):
+            if cfg.regmode in (4, 5) and self.anat is not None:
+                return C.anatomical_triplet_costs(
+                    cp, rl, self.tables, self.anat, la, lb, lc, *args,
+                    fixnan=cfg.fixnan)
             return C.triplet_combo_costs(rl, cp, self.tables, la, lb, lc,
                                          *args, fixnan=cfg.fixnan)
+
+        if cfg.triclique:
+            def fn(la, lb, lc):
+                lik = C.triclique_likelihood(
+                    cp, rl, self.tables, s["face_idx"], s["face_mask"],
+                    s["src"], s["abs_weights"], s["cfweights"], la, lb, lc,
+                    cfg.simval, cfg.percentile,
+                    multivariate=cfg.multivariate and not cfg.patchwise)
+                return lik + regulariser(la, lb, lc)
+            return fn
+        if cfg.regmode not in (2, 3):
+            return regulariser
 
         def binary_fast(cur3, alpha):
             """(T,8) strain tables from 2 gathered positions per corner."""
@@ -213,6 +274,20 @@ class PairwiseModel:
 
         regulariser.binary_fast = binary_fast
         return regulariser
+
+    def pair_combo_fn(self, s):
+        """Pair costs for label-index arrays (Pr,C), read from the
+        (Pr,L,L) rotation-difference volume (kept as `fn.volume`)."""
+        cfg = self.cfg
+        vol = C.pairwise_cost_volume(s["rl"], s["cp"], self.tables,
+                                     cfg.reglambda, cfg.rexp)
+        pr = torch.arange(vol.shape[0], device=vol.device)[:, None]
+
+        def fn(pa, pb):
+            return vol[pr, pa, pb]
+
+        fn.volume = vol
+        return fn
 
     def apply_labeling(self, labeling: np.ndarray, s) -> None:
         """CP_k <- ROT_k @ label_{l_k} (applyLabeling, DiscreteModel.cpp:264)."""

@@ -2,7 +2,6 @@
 and triplet costs, the fusion optimiser, rigid alignment) held against the
 JAX package on the same seeded state."""
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -22,7 +21,8 @@ from newmsm_tpu_torch.reg import rigid as TR
 from newmsm_tpu_torch.reg.optimise import fusion as TFU
 
 from fixtures import make_pair, smooth_pattern
-from torch_helpers import assert_close_f32, np_, warped_icosphere
+from torch_helpers import (assert_close_f32, jax_fusion_starts, np_,
+                           warped_icosphere)
 
 RES, CP_RES, SG_RES = 3, 1, 3
 
@@ -52,16 +52,6 @@ def models():
     sj = jm.setup_iteration(cfw)
     st = tm.setup_iteration(cfw)
     return jm, tm, sj, st
-
-
-def _jax_starts(K, n_restarts=2):
-    """The JAX package's fusion random starts (fusion.py:242-245), for
-    injection into the port (torch cannot reproduce threefry)."""
-    def starts(alpha):
-        key = jax.random.fold_in(jax.random.PRNGKey(7), alpha)
-        return torch.from_numpy(np.array(jax.random.bernoulli(
-            key, 0.5, (n_restarts, K)).astype(jnp.int32)))
-    return starts
 
 
 def test_model_setup_and_patches_match_jax(models):
@@ -195,7 +185,7 @@ def test_fusion_optimize_matches_jax_with_injected_starts(models):
     ftab = convert.fusion_tables(jm.fusion_tables, device="cpu")
     lab_t = TFU.fusion_optimize(torch.zeros(K, dtype=torch.int64), ut,
                                 tm.tables.triplets, ftab, tfn_t, L,
-                                random_starts=_jax_starts(K))
+                                random_starts=jax_fusion_starts(K))
     e_t = float(TFU.fusion_energy(lab_t, ut, tm.tables.triplets, tfn_t))
     np.testing.assert_array_equal(np_(lab_t), np_(lab_j))
     np.testing.assert_allclose(e_t, e_j, rtol=1e-5)
@@ -239,7 +229,7 @@ def test_fusion_binary_solve_is_exact_on_12_nodes():
     X = _all_states(K)
     labeling = torch.zeros(K, dtype=torch.int64)
     for alpha in list(range(1, L)) + list(range(L)):
-        u0, u1, t8 = TFU.binary_move_tables(labeling, alpha, unary, trip, tfn)
+        u0, u1, t8, _ = TFU.binary_move_tables(labeling, alpha, unary, trip, tfn)
         x = TFU.fusion_binary_solve(labeling, alpha, unary, trip,
                                     tm.fusion_tables, tfn,
                                     starts=torch.randint(0, 2, (2, K),
