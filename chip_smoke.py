@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (newmsm_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--warm-runs N]
+    python3 chip_smoke.py [--warm-runs N] [--profile-group]
 
 Phases, each printing its own lines; any failure exits non-zero and prints
 no result line:
@@ -32,13 +32,21 @@ no result line:
               verbatim, which is not in this repository;
   7. mcmc     one --dopt=MCMC --regoption=3 run at small depth (CP ico-2/3,
               1280 draws a level): energies, folds, seconds per sweep;
-  8. timing   the kernel and its plain version at the shape of the main
+  8. group    the groupwise path (gMSM) through the CLI with list files:
+              the gMSM tutorial config (CP 2/3/4, SG 4/5/6, datagrid 4/5/6,
+              lambda 0.3, HOCR, regoption 3; --it cut to 2,2,2) on 6 ico-6
+              synthetic subjects and an ico-6 template; checks one sphere
+              and one transformed map a subject, folds, energies, that the
+              patches were not truncated, the mean pairwise sulc CC and the
+              kernel's launches; then pipelines.gmsm.dedrift on those
+              spheres and one small run_gmsm call (3 subjects, ico-4);
+  9. timing   the kernel and its plain version at the shape of the main
               path's largest locate call: windows of back-to-back launches
               between CUDA events (median and spread), the SM clock and
               power sampled under the load, the roofline bound and the
               issue-slot bound from the SASS instruction count.
 
-Phases 4 to 7 each set the kernel's launch count to 0 before the CLI call
+Phases 4 to 8 each set the kernel's launch count to 0 before the CLI call
 and read it after; a path that never launched the kernel fails the run.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Imports neither JAX nor the JAX package.
@@ -146,6 +154,55 @@ MCMC_CONFIG = """\
 --regexp=2
 --dopt=MCMC
 --VN
+--k_exponent=2
+--bulkmod=1.6
+--shearmod=0.4
+"""
+
+# the gMSM tutorial example config (scripts/parity_harness.py
+# GROUPWISE_CONFIG, from docs/guide.md:394-411 with lambda 0.3) verbatim
+# except the iteration counts, 9,9,9 -> 2,2,2
+GROUP_STANDARD_ITERS = "9,9,9"
+GROUP_ITERS = "2,2,2"
+GROUP_SUBJECTS = 6
+GROUP_CONFIG = f"""\
+--simval=2,2,2
+--sigma_in=0,0,0
+--sigma_ref=0,0,0
+--lambda=0.3,0.3,0.3
+--it={GROUP_ITERS}
+--opt=DISCRETE,DISCRETE,DISCRETE
+--CPgrid=2,3,4
+--SGgrid=4,5,6
+--datagrid=4,5,6
+--regoption=3
+--regexp=2
+--dopt=HOCR
+--k_exponent=2
+--bulkmod=1.6
+--shearmod=0.4
+"""
+# the harness's FAST_GROUPWISE (data grids 3/4/4, CP 1/2/2, SG 3/4/4) with
+# --it=2,2,2, for the small run_gmsm call
+GROUP_SMALL_CONFIG = GROUP_CONFIG.replace(
+    "--datagrid=4,5,6", "--datagrid=3,4,4").replace(
+    "--CPgrid=2,3,4", "--CPgrid=1,2,2").replace(
+    "--SGgrid=4,5,6", "--SGgrid=3,4,4")
+
+# the last level of GROUP_CONFIG alone, one iteration: the --profile run
+GROUP_LAST_LEVEL_CONFIG = """\
+--simval=2
+--sigma_in=0
+--sigma_ref=0
+--lambda=0.3
+--it=1
+--opt=DISCRETE
+--CPgrid=4
+--SGgrid=6
+--datagrid=6
+--regoption=3
+--regexp=2
+--dopt=HOCR
 --k_exponent=2
 --bulkmod=1.6
 --shearmod=0.4
@@ -544,6 +601,24 @@ def phase_amsm(torch, workdir, warm_runs=0):
     return launches
 
 
+def trace_busy(trace_dir):
+    """Of a --profile trace: (events, device kernels, microseconds with a
+    kernel on the device (union of the kernel intervals), traced span in
+    microseconds)."""
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        trace = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in trace
+                   if e.get("cat") == "kernel")
+    timed = [e for e in trace if "ts" in e and "dur" in e]
+    wall = (max(e["ts"] + e["dur"] for e in timed)
+            - min(e["ts"] for e in timed))
+    busy, end = 0.0, spans[0][0] if spans else 0.0
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return len(trace), len(spans), busy, wall
+
+
 def phase_mcmc(torch, workdir):
     """One MCMC run at small depth: an ico-5 sphere whose data are the
     analytic group pattern, the input's rotated by 6 degrees. (On a warped
@@ -589,21 +664,186 @@ def phase_mcmc(torch, workdir):
     trace_dir = os.path.join(workdir, "mcmc_trace")
     run_path(torch, workdir, "mcmc_profiled", inputs, MCMC_CONFIG,
              extra=("--profile", trace_dir))
-    with open(os.path.join(trace_dir, "trace.json")) as f:
-        trace = json.load(f)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in trace
-                   if e.get("cat") == "kernel")
-    check(len(spans) > 0, "mcmc: the --profile trace holds no device kernel")
-    timed = [e for e in trace if "ts" in e and "dur" in e]
-    wall = (max(e["ts"] + e["dur"] for e in timed)
-            - min(e["ts"] for e in timed))
-    busy, end = 0.0, spans[0][0]
-    for a, b in spans:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    print(f"mcmc: --profile trace: {len(trace)} events, {len(spans)} device "
+    n_events, n_kernels, busy, wall = trace_busy(trace_dir)
+    check(n_kernels > 0, "mcmc: the --profile trace holds no device kernel")
+    print(f"mcmc: --profile trace: {n_events} events, {n_kernels} device "
           f"kernels, device busy {busy / wall:.4f} of the traced "
           f"{wall / 1e6:.3f} s")
+    return launches
+
+
+def phase_group(torch, workdir, profile=False):
+    """The groupwise path at full width: the gMSM tutorial config on
+    GROUP_SUBJECTS ico-6 subjects through the CLI with list files; then
+    dedrift on the CLI's output spheres and one small run_gmsm call. With
+    `profile`, the config's last level alone (one iteration) runs once more
+    under --profile, for the share of the time a kernel is on the card."""
+    from newmsm_tpu_torch import cli
+    from newmsm_tpu_torch.core import io as mio
+    from newmsm_tpu_torch.core.mesh import Mesh
+    from newmsm_tpu_torch.eval import metrics
+    from newmsm_tpu_torch.eval.synth import synth_cohort
+    from newmsm_tpu_torch.ops import locate
+    from newmsm_tpu_torch.ops.unfold import count_folds
+    from newmsm_tpu_torch.pipelines import gmsm
+
+    S = GROUP_SUBJECTS
+    meshes, datasets, _ = synth_cohort(MAIN_RES, S, seed=0)
+    template = Mesh.from_icosphere(MAIN_RES)
+    template.true_rescale(100.0)
+    print(f"group: {S} ico-{MAIN_RES} subjects, {template.nvertices} "
+          f"vertices, {datasets[0].shape[0]} channels; template ico-"
+          f"{MAIN_RES}")
+    print(f"reduced: --it={GROUP_ITERS} (the gMSM tutorial config has "
+          f"--it={GROUP_STANDARD_ITERS}); nothing else cut")
+    mesh_paths, data_paths = [], []
+    for s in range(S):
+        mesh_paths.append(os.path.join(workdir, f"group_{s}.surf.gii"))
+        data_paths.append(os.path.join(workdir, f"group_{s}.func.gii"))
+        meshes[s].save(mesh_paths[-1])
+        Mesh(coords=meshes[s].coords, faces=meshes[s].faces,
+             data=datasets[s]).save(data_paths[-1])
+    lists = {}
+    for name, paths in (("meshes", mesh_paths), ("data", data_paths)):
+        lists[name] = os.path.join(workdir, f"group_{name}.txt")
+        with open(lists[name], "w") as f:
+            f.write("\n".join(paths) + "\n")
+    tmpl_path = os.path.join(workdir, "group_template.surf.gii")
+    template.save(tmpl_path)
+    conf = os.path.join(workdir, "group.conf")
+    with open(conf, "w") as f:
+        f.write(GROUP_CONFIG)
+    out = os.path.join(workdir, "group_out_")
+    metrics_path = out + "metrics.jsonl"
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    locate.LAUNCHES = locate.LARGEST = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["--groupwise", "--meshes", lists["meshes"], "--data",
+                   lists["data"], "--template", tmpl_path, "-o", out,
+                   "--conf", conf, "--metrics", metrics_path, "--device",
+                   "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (locate.LAUNCHES, locate.LARGEST)
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"group: cli returned {rc}")
+    print(f"group: cli wall {wall:.2f} s, locate_bary launches "
+          f"{launches[0]}, the largest of {launches[1]} queries; peak device "
+          f"memory {peak / 2**30:.3f} GiB")
+    check(launches[0] > 0, "group: the path never launched the locate kernel")
+
+    events = [json.loads(line) for line in open(metrics_path)]
+    iters = [e for e in events if e["event"] == "iter"]
+    warp = {(e["level"], e["iter"]): e["warp_s"] for e in events
+            if e["event"] == "warp"}
+    for e in events:
+        if e["event"] == "level":
+            print(f"group: level {e['level']}: wall {e['wall_s']} s, of which "
+                  f"level set-up {e['init_s']} s")
+        elif e["event"] == "outputs":
+            print(f"group: outputs written in {e['wall_s']} s")
+        elif e["event"] == "iter":
+            print(f"group: iter level {e['level']} it {e['iter']}: energy "
+                  f"{e['energy']:.6f} setup_s {e['setup_s']} opt_s "
+                  f"{e['opt_s']} warp_s "
+                  f"{warp.get((e['level'], e['iter']), 'n/a')} (changed "
+                  f"{e['changed']:.3f}, pmax {e['pmax']}, patch_overflow "
+                  f"{e['patch_overflow']}, colours {e['colors']})")
+    check(len(iters) > 0 and all(np.isfinite(e["energy"]) for e in iters),
+          "group: energies not finite")
+    levels = sorted({e["level"] for e in iters})
+    check(levels == [1, 2, 3], f"group: levels run: {levels}")
+    for lv in levels:
+        last = [e for e in iters if e["level"] == lv][-1]
+        check(last["patch_overflow"] == 0, f"group: level {lv} ended with "
+              f"patch_overflow {last['patch_overflow']}")
+
+    spheres, maps, folds = [], [], []
+    for s in range(S):
+        sp = out + f"sphere-{s}.reg.surf.gii"
+        dp = out + f"transformed_and_reprojected-{s}.func.gii"
+        check(os.path.exists(sp) and os.path.exists(dp),
+              f"group: missing outputs of subject {s}")
+        spheres.append(Mesh.load(sp))
+        folds.append(count_folds(spheres[-1], device="cuda"))
+        data = mio.load_data(dp, template)
+        check(data.shape == datasets[s].shape and np.isfinite(data).all(),
+              f"group: transformed data of subject {s} malformed")
+        maps.append(data)
+    cc_before = metrics.mean_pairwise_cc([d[0] for d in datasets])
+    cc_after = metrics.mean_pairwise_cc([d[0] for d in maps])
+    print(f"group: folds by subject {folds}; mean pairwise sulc CC before "
+          f"{cc_before:.4f} after {cc_after:.4f}")
+    check(sum(folds) == 0, f"group: output spheres have folds: {folds}")
+    check(cc_after > cc_before, "group: the mean pairwise CC was not raised")
+
+    if profile:
+        pconf = os.path.join(workdir, "group_profile.conf")
+        with open(pconf, "w") as f:
+            f.write(GROUP_LAST_LEVEL_CONFIG)
+        trace_dir = os.path.join(workdir, "group_trace")
+        pout = os.path.join(workdir, "group_profiled_")
+        t0 = time.perf_counter()
+        rc = cli.main(["--groupwise", "--meshes", lists["meshes"], "--data",
+                       lists["data"], "--template", tmpl_path, "-o", pout,
+                       "--conf", pconf, "--metrics", pout + "metrics.jsonl",
+                       "--device", "cuda", "--profile", trace_dir])
+        check(rc == 0, f"group: profiled cli returned {rc}")
+        pwall = time.perf_counter() - t0
+        n_events, n_kernels, busy, span = trace_busy(trace_dir)
+        check(n_kernels > 0, "group: the --profile trace holds no kernel")
+        pe = [json.loads(line) for line in open(pout + "metrics.jsonl")]
+        it = [e for e in pe if e["event"] == "iter"][0]
+        print(f"group: last level alone (K 2,562, one iteration) under "
+              f"--profile: cli wall {pwall:.2f} s, setup_s {it['setup_s']} "
+              f"opt_s {it['opt_s']}; trace of {n_events} events, {n_kernels} "
+              f"device kernels, device busy {busy / span:.4f} of the traced "
+              f"{span / 1e6:.3f} s")
+
+    # dedrift on the CLI's output spheres: the common (mean) displacement
+    # must shrink, and the spheres stay fold-free
+    def drift(ms):
+        mean_disp = np.mean([m.coords - meshes[0].coords for m in ms], axis=0)
+        return float(np.sqrt((mean_disp ** 2).sum(1).mean()))
+
+    t0 = time.perf_counter()
+    ded = gmsm.dedrift(spheres, meshes[0], device="cuda")
+    torch.cuda.synchronize()
+    ded_folds = [count_folds(m, device="cuda") for m in ded]
+    print(f"group: dedrift of {S} spheres in {time.perf_counter() - t0:.2f} "
+          f"s: rms mean displacement {drift(spheres):.4f} -> {drift(ded):.4f}"
+          f"; folds {ded_folds}")
+    check(drift(ded) < drift(spheres), "group: dedrift did not shrink the "
+          "mean displacement")
+    check(sum(ded_folds) == 0, f"group: dedrifted spheres fold: {ded_folds}")
+
+    # one run_gmsm call at small depth
+    sm, sd, _ = synth_cohort(4, 3, seed=0)
+    small_t = Mesh.from_icosphere(4)
+    small_t.true_rescale(100.0)
+    sconf = os.path.join(workdir, "group_small.conf")
+    with open(sconf, "w") as f:
+        f.write(GROUP_SMALL_CONFIG)
+    gout = os.path.join(workdir, "gmsm_out_")
+    t0 = time.perf_counter()
+    res = gmsm.run_gmsm(sm, sd, small_t, sconf, outdir=gout, device="cuda")
+    torch.cuda.synchronize()
+    print(f"group: run_gmsm (3 subjects, ico-4, --it={GROUP_ITERS}) in "
+          f"{time.perf_counter() - t0:.2f} s: stats "
+          f"{ {k: round(v, 4) for k, v in res.stats.items()} }")
+    want = {"cc", "dice", "areal_mean", "areal_max", "areal_95", "areal_98",
+            "shape_mean", "shape_max"}
+    check(want <= set(res.stats) and all(
+        np.isfinite(v) for v in res.stats.values()),
+        f"group: run_gmsm stats malformed: {res.stats}")
+    for name in ("mean.func.gii", "stdev.func.gii"):
+        check(os.path.exists(gout + name), f"group: run_gmsm wrote no {name}")
+    check(res.mean_map.shape == (2, small_t.nvertices)
+          and np.isfinite(res.mean_map).all(), "group: mean map malformed")
+    check(res.stats["cc"] > metrics.mean_pairwise_cc([d[0] for d in sd]),
+          "group: run_gmsm did not raise the mean pairwise CC")
     return launches
 
 
@@ -613,6 +853,10 @@ def main(argv=None) -> int:
                     help="after the strain, MSMpair and aMSM paths, time "
                          "this many more runs of each in the same process "
                          "(tables cached)")
+    ap.add_argument("--profile-group", action="store_true",
+                    help="after the group path, run its last level alone "
+                         "(one iteration) under --profile and print the "
+                         "share of the time a kernel is on the card")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -640,6 +884,7 @@ def main(argv=None) -> int:
                                            args.warm_runs)
         by_path["amsm"] = phase_amsm(torch, workdir, args.warm_runs)
         by_path["mcmc"] = phase_mcmc(torch, workdir)
+        by_path["group"] = phase_group(torch, workdir, args.profile_group)
     k, plain, roof = phase_timing(torch, n_queries, MAIN_RES)
     # and at the largest call of the new paths (triclique / anatomical)
     largest = max(n for _, n in by_path.values())

@@ -6,9 +6,12 @@
         --device cuda
 
 --device defaults to cuda and raises when CUDA is missing; pass
---device cpu to run on the CPU. Every pairwise configuration of the JAX
-package's CLI runs (--inanat/--refanat for regoption 5, --profile DIR for a
-torch.profiler trace); only --groupwise is not ported yet.
+--device cpu to run on the CPU. Every configuration of the JAX package's CLI
+runs (--inanat/--refanat for regoption 5, --profile DIR for a torch.profiler
+trace), and the groupwise mode:
+
+    python -m newmsm_tpu_torch.cli --groupwise --meshes meshes.txt \\
+        --data data.txt --template template.surf.gii -o out/ --conf config
 """
 from __future__ import annotations
 
@@ -57,6 +60,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def read_list_file(path: str) -> list[str]:
+    with open(path) as f:
+        return [line.strip() for line in f if line.strip()]
+
+
 def print_config_options():
     from .reg import config as C
     print("newmsm configuration parameters (per-level lists are comma separated):")
@@ -71,8 +79,22 @@ def main(argv=None) -> int:
         print_config_options()
         return 0
     if args.groupwise:
-        raise NotImplementedError("--groupwise is not yet ported to "
-                                  "newmsm_tpu_torch (ROADMAP.md queue 1)")
+        from .reg.group import GroupMeshRegistration
+        gmr = GroupMeshRegistration(device=args.device)
+        if args.verbose:
+            print(f"This is newmsm_tpu_torch on {gmr.device}.")
+        gmr.verbose = args.verbose
+        gmr.debug = args.debug
+        gmr.metrics_path = args.metrics or None
+        gmr.profile_dir = args.profile or None
+        gmr.outdir = args.out
+        gmr.set_inputs(read_list_file(args.meshes))
+        gmr.set_data_list(read_list_file(args.data))
+        gmr.set_template(args.template)
+        if args.mask:
+            gmr.set_mask(args.mask)
+        gmr.run_multiresolutions(args.conf or None)
+        return 0
     if not args.inmesh:
         print("error: --inmesh is required", file=sys.stderr)
         return 1

@@ -18,6 +18,7 @@ import torch
 from . import resolve_device
 from .core.mesh import Mesh
 from .ops.nearest import SearchTables
+from .parallel.group_fusion import GroupIterTables, GroupLevelStatics
 from .reg.costs import AnatTables, LevelTables
 from .reg.optimise.fusion import FusionTables, color_group_tensors
 
@@ -97,3 +98,51 @@ def iteration_state(src: Mapping, device=None) -> dict:
     PairwiseModel.setup_iteration: labels, rotations, patches, weights)
     -> the same dict of tensors."""
     return {k: tensor(v, device) for k, v in src.items()}
+
+
+def group_statics(src: Any, device=None) -> GroupLevelStatics:
+    """newmsm_tpu.parallel.group_fusion.GroupLevelStatics -> the port's
+    (tensors converted, the CP search tables through `search_tables`,
+    scalars carried as they are)."""
+    out = {}
+    for name in GroupLevelStatics._fields:
+        v = _field(src, name)
+        if name == "cp_search":
+            out[name] = search_tables(v, device)
+        elif name == "mask_w":
+            out[name] = None if v is None else tensor(v, device)
+        elif name in ("labels", "centre", "orig_cp", "cp_faces",
+                      "tmpl_coords"):
+            out[name] = tensor(v, device)
+        else:
+            out[name] = v
+    return GroupLevelStatics(**out)
+
+
+def group_iter_tables(src: Any, device=None) -> GroupIterTables:
+    """newmsm_tpu.parallel.group_fusion.GroupIterTables -> the port's: the
+    bucket padding of the colour groups and of the pair-incidence columns
+    is dropped, and the node colouring is recovered from the groups."""
+    groups = np.asarray(_field(src, "vgroups"))
+    gmask = np.asarray(_field(src, "vgroup_mask"))
+    keep = gmask.any(axis=1)
+    if not keep[:int(keep.sum())].all():
+        raise ValueError("group_iter_tables: an empty colour group lies "
+                         "before a filled one")
+    vert_pair = np.asarray(_field(src, "vert_pair"))
+    width = max(1, int((vert_pair >= 0).sum(axis=1).max()))
+    if (vert_pair[:, width:] >= 0).any():
+        raise ValueError("group_iter_tables: pair incidence rows are not "
+                         "left-packed")
+    colors = np.full(vert_pair.shape[0], -1, np.int32)
+    for c in np.nonzero(keep)[0]:
+        colors[groups[c][gmask[c]]] = c
+    return GroupIterTables(
+        groups=color_group_tensors(groups[keep], gmask[keep],
+                                   resolve_device(device)),
+        vert_tri=tensor(_field(src, "vert_tri"), device),
+        vert_tri_corner=tensor(_field(src, "vert_tri_corner"), device),
+        vert_pair=tensor(vert_pair[:, :width], device),
+        vert_pair_end=tensor(
+            np.asarray(_field(src, "vert_pair_end"))[:, :width], device),
+        colors=colors)

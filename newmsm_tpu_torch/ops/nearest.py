@@ -363,6 +363,11 @@ def _select(qc, cand_tri, tv, vc, rad):
     return cand_tri[rows, sel], tv[rows, sel], vc[rows, sel]
 
 
+_SELECT_CHUNK = 1 << 16    # queries per containment pass of `_search`
+_DENSE_ELEMS = 1 << 26     # score-matrix elements up to which `_search`
+#                            widens its nearest-vertex chunks beyond `chunk`
+
+
 def _search(query, tables: SearchTables, chunk: int = 4096,
             rad: float = 100.0):
     """Full search: (tri (Q,), tv (Q,3), vc (Q,3,3)).
@@ -386,9 +391,12 @@ def _search(query, tables: SearchTables, chunk: int = 4096,
     sq = (dense_c * dense_c).sum(1)
     ref_coords = tuple(coords[d] for d in tables.descent)   # (n_r,Cd,3)
 
-    out = []
-    for s in range(0, q.shape[0], chunk):
-        qc = q[s:s + chunk]
+    # nearest vertex, in chunks of at least `chunk` queries (the dense score
+    # matrix is (chunk, n_dense); against few vertices the chunks widen)
+    step = max(chunk, _DENSE_ELEMS // n_dense)
+    nearest = []
+    for s in range(0, q.shape[0], step):
+        qc = q[s:s + step]
         # the score form carries ~1e-3 absolute f32 noise at RAD=100, so
         # every path below re-ranks with EXACT squared distances
         scores = 2.0 * (qc @ dense_c.T) - sq[None, :]
@@ -402,8 +410,16 @@ def _search(query, tables: SearchTables, chunk: int = 4096,
             cand = tables.ring_verts[nn].reshape(qc.shape[0], -1)  # (c,3C)
             d2 = ((qc[:, None, :] - coords[cand]) ** 2).sum(-1)
             nn = cand[rows, torch.argmin(d2, dim=1)]
-        out.append(_select(qc, tables.ring_faces[nn], tables.ring_verts[nn],
-                           rc[nn], rad))
+        nearest.append(nn)
+    nn = torch.cat(nearest)
+    # the containment choice is row-wise and its tensors are small
+    # ((c,C,3,3)), so it runs in far larger chunks: a 40,962-query search
+    # is one pass instead of eleven
+    out = []
+    for s in range(0, q.shape[0], _SELECT_CHUNK):
+        n = nn[s:s + _SELECT_CHUNK]
+        out.append(_select(q[s:s + _SELECT_CHUNK], tables.ring_faces[n],
+                           tables.ring_verts[n], rc[n], rad))
     return tuple(torch.cat(parts) for parts in zip(*out))
 
 

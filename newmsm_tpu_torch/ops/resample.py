@@ -162,6 +162,47 @@ def warp_coords(coords, frm_tables: SearchTables, to_coords):
 
 
 # --------------------------------------------------------------------------
+# batched label-deformed resampling (groupwise hot path)
+# --------------------------------------------------------------------------
+
+def vertex_areas_kernel(coords, faces, tri_idx):
+    """compute_vertex_area on tensors: mean incident face area per vertex.
+    coords (N,3), faces (T,3), tri_idx (N,MT) incident face ids, -1 padded."""
+    v0, v1, v2 = coords[faces[:, 0]], coords[faces[:, 1]], coords[faces[:, 2]]
+    areas = 0.5 * torch.linalg.norm(
+        torch.linalg.cross(v1 - v0, v2 - v0, dim=-1), dim=-1)
+    valid = tri_idx >= 0
+    g = areas[tri_idx.clamp(0, areas.shape[0] - 1)] * valid
+    return g.sum(1) / valid.sum(1).clamp(min=1)
+
+
+def label_deformed_maps(dg_coords, dg_data, dg_faces, dg_tri_idx,
+                        dg_ring_faces, dg_ring_verts, labels, centre,
+                        tmpl_tables: SearchTables, tmpl_vareas, cap: int = 16):
+    """(get_patch_data resampling stage, DiscreteGroupModel.cpp:88-121):
+    for each label l, displace every data-grid vertex x to
+    R(centre->x) @ label_l and adaptive-barycentric resample the data onto
+    the template. The reverse map of each label (data-grid vertices located
+    on the template) goes through the locate kernel when the template is a
+    pristine icosphere.
+
+    dg_coords (N,3), dg_data (D,N), labels (L,3) -> (L, D, Nt)."""
+    rots = sph.rodrigues(centre.expand(dg_coords.shape), dg_coords)
+    deformed = torch.einsum("nij,lj->lni", rots, labels)         # (L,N,3)
+    out = []
+    for coords_l in deformed:
+        in_tables = SearchTables(coords=coords_l, faces=dg_faces,
+                                 ring_faces=dg_ring_faces,
+                                 ring_verts=dg_ring_verts)
+        in_vareas = vertex_areas_kernel(coords_l, dg_faces, dg_tri_idx)
+        idx, w = adaptive_weights(coords_l, tmpl_tables.coords, in_tables,
+                                  tmpl_tables, in_vareas, tmpl_vareas,
+                                  None, cap=cap)
+        out.append(apply_weights(idx, w, dg_data))               # (D,Nt)
+    return torch.stack(out)
+
+
+# --------------------------------------------------------------------------
 # mesh-level wrappers (numpy meshes in and out; device None means cuda)
 # --------------------------------------------------------------------------
 

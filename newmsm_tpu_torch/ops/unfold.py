@@ -10,7 +10,8 @@ stall-break rule (fold count not improving for 4 checks AND max motion
 below 1e-3), so both packages stop at the same sweep.
 
 The loop condition is read on the host after each sweep (one device sync
-per sweep).
+per sweep). `unfold_coords` is the one sweep loop, on tensors; `unfold` wraps
+it for numpy meshes.
 """
 from __future__ import annotations
 
@@ -106,51 +107,74 @@ def _vertex_groups_np(faces_key: bytes, nverts: int, nfaces: int):
     return color_groups(vertex_coloring_from_faces(faces, nverts))
 
 
-def _color_masks(mesh: Mesh, device):
-    """(C,N) bool: vertex colour groups (no two share a face)."""
-    faces = np.ascontiguousarray(mesh.faces, np.int32)
-    groups, mask = _vertex_groups_np(faces.tobytes(), mesh.nvertices,
-                                     faces.shape[0])
-    out = np.zeros((groups.shape[0], mesh.nvertices), bool)
-    for c in range(groups.shape[0]):
-        out[c, groups[c][mask[c]]] = True
-    return torch.from_numpy(out).to(device)
+class UnfoldTopology:
+    """Device tensors of one mesh topology for `unfold_coords`: faces (T,3),
+    tri_idx (N,MT) and nbr_idx (N,MN) (-1 padded), all int64. The vertex
+    colour masks are built at the first sweep that needs them (a fold-free
+    mesh never pays for the colouring)."""
+
+    def __init__(self, faces: np.ndarray, nverts: int, tri_idx: np.ndarray,
+                 nbr_idx: np.ndarray, device):
+        self.device = resolve_device(device)
+        self._faces_np = np.ascontiguousarray(faces, np.int32)
+        self.nverts = int(nverts)
+        self.faces = torch.as_tensor(self._faces_np.astype(np.int64)).to(
+            self.device)
+        self.tri_idx = torch.as_tensor(tri_idx.astype(np.int64)).to(self.device)
+        self.nbr_idx = torch.as_tensor(nbr_idx.astype(np.int64)).to(self.device)
+        self.fv = self.faces[self.tri_idx.clamp(0, self.faces.shape[0] - 1)]
+        self._masks = None
+
+    @classmethod
+    def from_mesh(cls, mesh: Mesh, device=None) -> "UnfoldTopology":
+        nbr_idx, _, tri_idx, _ = mesh.adjacency
+        return cls(mesh.faces, mesh.nvertices, tri_idx, nbr_idx, device)
+
+    @property
+    def color_masks(self):
+        """(C,N) bool: vertex colour groups (no two share a face)."""
+        if self._masks is None:
+            groups, mask = _vertex_groups_np(
+                self._faces_np.tobytes(), self.nverts, self._faces_np.shape[0])
+            out = np.zeros((groups.shape[0], self.nverts), bool)
+            for c in range(groups.shape[0]):
+                out[c, groups[c][mask[c]]] = True
+            self._masks = torch.from_numpy(out).to(self.device)
+        return self._masks
 
 
-def unfold(mesh: Mesh, verbose: bool = False, max_iter: int = 1000,
-           chunk: int = 25, n_steps: int = 11, device=None) -> Mesh:
-    """Returns a fold-free copy of `mesh` (or the stalled residual).
-    `device` None means cuda."""
-    nbr_idx, _, tri_idx, _ = mesh.adjacency
-    dev = resolve_device(device)
-    coords = torch.as_tensor(mesh.coords, dtype=torch.float32).to(dev)
-    faces = torch.as_tensor(mesh.faces.astype(np.int64)).to(dev)
-    tri_idx = torch.as_tensor(tri_idx.astype(np.int64)).to(dev)
-    nbr_idx = torch.as_tensor(nbr_idx.astype(np.int64)).to(dev)
-    fv = faces[tri_idx.clamp(0, faces.shape[0] - 1)]
-    steps = 2.0 ** -torch.arange(n_steps, dtype=torch.float32, device=dev)
-    masks = None
+def unfold_coords(coords, topo: UnfoldTopology, max_iter: int = 1000,
+                  chunk: int = 25, n_steps: int = 11,
+                  stall_break: bool = True):
+    """Untangle coords (N,3) float32 on topo's device: sweeps until no fold
+    remains or `max_iter`. The fold count is read on the host after each
+    sweep. With `stall_break`, every `chunk` sweeps the stall rule of the
+    JAX package's `unfold` applies (fold count not improving for 4 checks
+    AND max motion below 1e-3); without it the loop is the JAX package's
+    `unfold_kernel` (count and cap only), which its groupwise apply stage
+    calls. Returns (coords, residual folds, sweeps)."""
+    steps = 2.0 ** -torch.arange(n_steps, dtype=torch.float32,
+                                 device=coords.device)
 
     def n_folds(c):
-        return int(_folded_mask(c, faces, tri_idx).sum())
+        return int(_folded_mask(c, topo.faces, topo.tri_idx).sum())
 
     it_total = 0
     nf = n_folds(coords)
     stalled = 0
     best_nf = None
     while it_total < max_iter and nf > 0:
-        if masks is None:
-            masks = _color_masks(mesh, dev)
         prev = coords
         budget = min(chunk, max_iter - it_total)
         it = 0
         while nf > 0 and it < budget:
-            coords = _sweep(coords, faces, tri_idx, fv, masks, nbr_idx, steps)
+            coords = _sweep(coords, topo.faces, topo.tri_idx, topo.fv,
+                            topo.color_masks, topo.nbr_idx, steps)
             it += 1
             nf = n_folds(coords)
         it_total += it
-        if nf == 0 or it < chunk:
-            break
+        if nf == 0 or it < chunk or not stall_break:
+            continue
         # stall break (JAX package unfold, ops/unfold.py:203-222): fold
         # count not improving for 4 checks while the vertices stopped moving
         motion = float((coords - prev).abs().max())
@@ -163,6 +187,17 @@ def unfold(mesh: Mesh, verbose: bool = False, max_iter: int = 1000,
                 break
         else:
             stalled = 0
+    return coords, nf, it_total
+
+
+def unfold(mesh: Mesh, verbose: bool = False, max_iter: int = 1000,
+           chunk: int = 25, n_steps: int = 11, device=None) -> Mesh:
+    """Returns a fold-free copy of `mesh` (or the stalled residual).
+    `device` None means cuda."""
+    topo = UnfoldTopology.from_mesh(mesh, device)
+    coords = torch.as_tensor(mesh.coords, dtype=torch.float32).to(topo.device)
+    coords, nf, it_total = unfold_coords(coords, topo, max_iter, chunk,
+                                         n_steps)
     if verbose and it_total > 0:
         print(f"unfold: {it_total} sweeps, {nf} residual folds")
     out = mesh.copy()

@@ -61,6 +61,7 @@ class MeshRegistration:
         self.debug = False
         self.energy_log: list = []
         self.metrics_path: Optional[str] = None   # JSONL per-iteration metrics
+        self._issparse = False
 
     def _log_metrics(self, **kw):
         """One JSON line per event: energy, label-change share and stage
@@ -88,12 +89,20 @@ class MeshRegistration:
         m.true_rescale(RAD)
         self.ref_mesh = m
 
+    def is_sparse(self, sp: bool = True):
+        """Input data files are spconvert-format sparse connectivity
+        matrices (mesh_registration.h:61; vestigial in the reference, whose
+        CLI never sets it; kept for API parity)."""
+        self._issparse = bool(sp)
+
     def set_input_data(self, data: np.ndarray | str):
-        self.in_data = (mio.load_data(data, self.in_mesh)
+        self.in_data = (mio.load_data(data, self.in_mesh,
+                                      sparse=self._issparse)
                         if isinstance(data, str) else np.atleast_2d(data))
 
     def set_reference_data(self, data: np.ndarray | str):
-        self.ref_data = (mio.load_data(data, self.ref_mesh)
+        self.ref_data = (mio.load_data(data, self.ref_mesh,
+                                       sparse=self._issparse)
                          if isinstance(data, str) else np.atleast_2d(data))
 
     def set_transformed(self, mesh: Mesh | str):

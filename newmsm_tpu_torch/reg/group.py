@@ -1,0 +1,373 @@
+"""Groupwise registration (Group_Mesh_registration + DiscreteGroupModel +
+DiscreteGroupCostFunction; group_mesh_registration.cpp, DiscreteGroupModel.cpp,
+DiscreteGroupCostFunction.cpp). Port of newmsm_tpu/reg/group.py on one
+explicit device.
+
+N subjects' spheres are co-registered simultaneously: MRF nodes are
+(subject, control-point) pairs, triplets are per-subject CP faces with strain
+regularisation (scaled by subcorr = 0.1*S), and pairs are cross-subject
+correspondences whose cost is the similarity of the subjects' label-deformed
+feature maps over the overlap of their template-space patches. HOCR fusion
+moves only (the reference rejects other optimisers, group_...cpp:85-89).
+
+All per-subject state is stored subject-major, `label_maps (S,L,D,Nt)` and
+CP coords (S,K,3), and stays on the device across the iterations of a
+level; every heavy per-iteration stage runs through
+parallel/group_fusion.py. One process, one device.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .. import RAD, resolve_device
+from ..core import io as mio
+from ..core.mesh import Mesh
+from ..ops import resample as rsp
+from ..ops.nearest import build_tables
+from ..ops.unfold import unfold
+from ..parallel import group_fusion as GF
+from . import featurespace as fsp
+from .config import RegConfig, parse_config
+from .sampling_grid import build_sampling_grid
+
+
+class GroupMeshRegistration:
+    """Groupwise registration of S spheres + data to a template space,
+    computed on `device` (None means cuda)."""
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        self.meshes: List[Mesh] = []
+        self.datasets: List[np.ndarray] = []
+        self.template: Optional[Mesh] = None
+        self.mask: Optional[np.ndarray] = None
+        self.profile_dir: Optional[str] = None    # torch.profiler trace dir
+        self.outdir = "./"
+        self.surf_format = ".surf.gii"
+        self.data_format = ".func.gii"
+        self.verbose = False
+        self.debug = False
+        self.energy_log: list = []
+        self.metrics_path: Optional[str] = None   # JSONL per-iteration metrics
+        # alpha -> (n_restarts, S*K) int tensor: the fusion optimiser's
+        # random starts, injected (a test feeds both packages the same
+        # draws); None draws them from a generator seeded with FUSION_SEED
+        self.fusion_random_starts = None
+
+    def _log_metrics(self, **kw):
+        """Same JSONL contract as the pairwise driver: one JSON line per
+        event."""
+        if self.metrics_path:
+            with open(self.metrics_path, "a") as f:
+                f.write(json.dumps(kw) + "\n")
+
+    def _clock(self) -> float:
+        """Host time after the device's queued work finished."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    # ---- inputs ----------------------------------------------------------
+    def set_inputs(self, meshes: List[Mesh] | List[str]):
+        self._raw_meshes = list(meshes)
+        self.meshes = []
+
+    def set_data_list(self, data: List[np.ndarray] | List[str]):
+        self._raw_data = list(data)
+        self.datasets = []
+
+    def _load_subject(self, s: int):
+        m = self._raw_meshes[s]
+        mesh = Mesh.load(m) if isinstance(m, str) else m.copy()
+        mesh.recentre()
+        mesh.true_rescale(RAD)
+        d = self._raw_data[s]
+        data = (mio.load_data(d, mesh) if isinstance(d, str)
+                else np.atleast_2d(d))
+        return mesh, data
+
+    def _materialise_inputs(self):
+        S = len(self._raw_meshes)
+        if len(self._raw_data) != S:
+            raise ValueError("meshes/data list length mismatch")
+        loaded = [self._load_subject(s) for s in range(S)]
+        self.meshes = [m for m, _ in loaded]
+        self.datasets = [d for _, d in loaded]
+
+    def set_template(self, mesh: Mesh | str):
+        m = Mesh.load(mesh) if isinstance(mesh, str) else mesh.copy()
+        m.recentre()
+        m.true_rescale(RAD)
+        self.template = m
+
+    def set_mask(self, mask: np.ndarray | str):
+        self.mask = (mio.load_data(mask, self.template)[0]
+                     if isinstance(mask, str) else np.asarray(mask))
+
+    # ---- main ------------------------------------------------------------
+    def run_multiresolutions(self, config: RegConfig | str | None = None):
+        if not self.profile_dir:
+            return self._run_multiresolutions(config)
+        # one trace of the whole run (host ops, and the card's kernels when
+        # on cuda), as Chrome trace JSON: chrome://tracing or Perfetto
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            out = self._run_multiresolutions(config)
+        prof.export_chrome_trace(os.path.join(self.profile_dir, "trace.json"))
+        return out
+
+    def _run_multiresolutions(self, config: RegConfig | str | None = None):
+        cfg = config if isinstance(config, RegConfig) else parse_config(config)
+        self.cfg = cfg
+        self._materialise_inputs()
+        S = len(self.meshes)
+        if S < 2:
+            raise ValueError("groupwise mode needs at least 2 subjects")
+        if self.template is None:
+            raise ValueError("groupwise mode needs a template sphere")
+
+        self.sph_reg: Optional[List[Mesh]] = None
+        for level in range(cfg.levels):
+            self.level = level + 1
+            if cfg.cost[level] in ("RIGID", "AFFINE"):
+                raise ValueError(
+                    "AFFINE/RIGID is not supported in groupwise mode")
+            if self.verbose:
+                print(f"-- groupwise level {self.level}/{cfg.levels}")
+            t0 = self._clock()
+            self._initialize_level(level)
+            t1 = self._clock()
+            self._evaluate(level)
+            self._log_metrics(event="level", level=self.level,
+                              cost=cfg.cost[level],
+                              init_s=round(t1 - t0, 4),
+                              wall_s=round(self._clock() - t0, 4))
+
+        t0 = self._clock()
+        self._write_outputs()
+        self._log_metrics(event="outputs", wall_s=round(self._clock() - t0, 4))
+        return self.sph_reg
+
+    # ---- level setup -----------------------------------------------------
+    def _f32(self, a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32).to(
+            self.device)
+
+    def _initialize_level(self, level: int):
+        cfg = self.cfg
+        dev = self.device
+        S = len(self.meshes)
+        # subject 0 is the histogram reference of intensity_norm
+        self.feat = fsp.initialise(
+            self.meshes, self.datasets, cfg.datagrid[level],
+            [cfg.sigma_in[level]] * S, exclude=cfg.exclude,
+            cut=cfg.cut, thresholds=tuple(cfg.cutthreshold),
+            intensity_norm=cfg.intensity_norm, variance_norm=cfg.variance_norm,
+            device=dev)
+        self.sph_orig = Mesh(coords=self.feat.grid.coords.copy(),
+                             faces=self.feat.grid.faces)
+
+        control = Mesh.from_icosphere(cfg.cpgrid[level])
+        control.recentre()
+        control.true_rescale(RAD)
+        self.control = control
+        K = control.nvertices
+
+        self.max_label_dist = 0.5 * control.calculate_MaxVD()
+        self.sampling = build_sampling_grid(cfg.sampgrid[level],
+                                            self.max_label_dist)
+        self.centre = self._f32(self.sampling.centre)
+
+        trip = np.sort(control.faces.astype(np.int32), axis=1)
+        self.cp_triplets = trip
+
+        if self.sph_reg is None or \
+                self.sph_reg[0].nvertices != self.sph_orig.nvertices:
+            prev = self.sph_reg
+            self.sph_reg = [Mesh(coords=self.sph_orig.coords.copy(),
+                                 faces=self.sph_orig.faces) for _ in range(S)]
+            if prev is not None:
+                # project previous level's warps onto the new data grid
+                icotmp = Mesh.from_icosphere(prev[0].get_resolution())
+                icotmp.true_rescale(RAD)
+                for s in range(S):
+                    warped = rsp.sphere_project_warp(self.sph_orig, icotmp,
+                                                     prev[s], dev)
+                    self.sph_reg[s] = unfold(warped, self.verbose, device=dev)
+        self.cp_grids = [control.copy() for _ in range(S)]
+
+        self.template_tables = build_tables(self.template.coords,
+                                            self.template.faces,
+                                            self.template.adjacency[2], dev)
+        # patch capacity: template verts within range*spacing of a CP
+        nt = self.template.nvertices
+        frac = (cfg.cprange * control.calculate_MaxVD())**2 / (4 * RAD**2)
+        self.pmax = int(min(nt, max(64, 2.5 * frac * nt)))
+
+        labels = np.asarray(self.sampling.samples, np.float32)
+        cp_search = build_tables(control.coords, control.faces,
+                                 control.adjacency[2], dev)
+        mask_w = (self._f32(self.mask).abs()
+                  if self.mask is not None else None)
+        self.level_statics = GF.GroupLevelStatics(
+            labels=self._f32(labels), centre=self.centre,
+            orig_cp=self._f32(control.coords),
+            cp_faces=torch.as_tensor(trip.astype(np.int64)).to(dev),
+            tmpl_coords=self._f32(self.template.coords),
+            mask_w=mask_w, cp_search=cp_search,
+            mu=cfg.shearmod, kappa=cfg.bulkmod, k_exp=cfg.k_exponent,
+            rexp=cfg.regexp, reglambda=cfg.reglambda[level],
+            subcorr=0.1 * S,             # DiscreteGroupCostFunction.h:45
+            simval=cfg.simval[level], percentile=cfg.percentile,
+            pmax=self.pmax, cprange=cfg.cprange, fixnan=cfg.fixnan)
+
+        dg0 = self.sph_orig
+        dg_tri_idx = dg0.adjacency[2]
+        dg_tables = build_tables(dg0.coords, dg0.faces, dg_tri_idx, dev)
+        dg_topology = (dg_tables.faces,
+                       torch.as_tensor(dg_tri_idx.astype(np.int64)).to(dev),
+                       dg_tables.ring_faces, dg_tables.ring_verts,
+                       self.template_tables,
+                       self._f32(self.template.vertex_area()))
+        cap = rsp._adaptive_cap(dg0.nvertices, nt)
+        self._maps_fn = GF.make_maps_fn(self.level_statics, dg_topology, cap)
+        self._apply_fn = GF.make_apply_fn(self.level_statics, S, control, dg0)
+        self._partner_fn = GF.make_partner_fn(self.level_statics, S)
+        self._fusion_fn = self._make_fusion_fn()
+        if self.verbose:
+            print(f"   S={S} K={K} labels={len(labels)} pmax={self.pmax} "
+                  f"device={dev}")
+
+    def _make_fusion_fn(self):
+        return GF.make_fusion_fn(self.level_statics, len(self.meshes),
+                                 random_starts=self.fusion_random_starts)
+
+    # ---- outer loop ------------------------------------------------------
+    def _evaluate(self, level: int):
+        """Outer discrete-optimisation loop (group run_discrete_opt,
+        group_mesh_registration.cpp:70-118)."""
+        cfg = self.cfg
+        dev = self.device
+        S = len(self.meshes)
+        K = self.control.nvertices
+        energy = 0.0
+
+        # device state, resident across iterations (the apply stage runs on
+        # the device too)
+        dg_coords = self._f32(np.stack([m.coords for m in self.sph_reg]))
+        dg_data = self._f32(np.stack(self.feat.data))
+        cp = self._f32(np.stack([g.coords for g in self.cp_grids]))
+        spac = self._f32(np.stack(
+            [g.max_vertex_distances() for g in self.cp_grids]))
+
+        def sync_host_meshes():
+            for arr, grids in ((dg_coords, self.sph_reg),
+                               (cp, self.cp_grids)):
+                data = arr.cpu().numpy().astype(np.float64)
+                for s in range(S):
+                    grids[s].coords = data[s]
+
+        for it in range(cfg.iters[level]):
+            t0 = self._clock()
+
+            if self.debug:
+                # per-iteration mesh dumps (DiscreteModel.cpp:234-240 analog)
+                sync_host_meshes()
+                for s in range(S):
+                    self.sph_reg[s].save(
+                        self._out(f"SOURCE-{s}-{self.level}-{it}.surf.gii"))
+                    self.cp_grids[s].save(
+                        self._out(f"CPgrid-{s}-{self.level}-{it}.surf.gii"))
+
+            # label-deformed template maps and cross-subject correspondences
+            maps = self._maps_fn(dg_coords, dg_data)
+            partner = self._partner_fn(cp)
+
+            # incidence + colouring for this iteration's pair structure
+            tables = GF.build_iteration_tables(
+                partner.cpu().numpy(), self.cp_triplets, S, K, dev)
+
+            t1 = self._clock()
+            labeling0 = torch.zeros(S * K, dtype=torch.int64, device=dev)
+            labeling, energy_dev, need_dev = self._fusion_fn(
+                maps, cp, spac, labeling0, partner, tables)
+            patch_need = int(need_dev)
+            patch_overflow = max(0, patch_need - self.pmax)
+            # the reference's patches are uncapped (DiscreteGroupModel.cpp:
+            # 88-121): on truncation, pre-size pmax from the measured max
+            # in-range count (+10% headroom, rounded to 16) and redo this
+            # iteration
+            nt = self.template.nvertices
+            while patch_overflow and self.pmax < nt:
+                self.pmax = int(min(nt, max(
+                    self.pmax + 16, -(-int(patch_need * 1.1) // 16) * 16)))
+                print(f"groupwise level {self.level} iter {it}: patches "
+                      f"need {patch_need} slots; growing pmax to "
+                      f"{self.pmax}")
+                self.level_statics = self.level_statics._replace(
+                    pmax=self.pmax)
+                self._fusion_fn = self._make_fusion_fn()
+                labeling, energy_dev, need_dev = self._fusion_fn(
+                    maps, cp, spac, labeling0, partner, tables)
+                patch_need = int(need_dev)
+                patch_overflow = max(0, patch_need - self.pmax)
+            newenergy = float(energy_dev)
+            t2 = self._clock()
+            self.energy_log.append((self.level, it, newenergy))
+            changed = float((labeling != 0).float().mean())
+            if self.verbose:
+                print(f"  iter {it}: energy {newenergy:.4f} "
+                      f"({changed:.0%} nodes moved)  "
+                      f"[setup {t1 - t0:.2f}s opt {t2 - t1:.2f}s]")
+            self._log_metrics(event="iter", level=self.level, iter=it,
+                              energy=newenergy, changed=changed,
+                              patch_overflow=patch_overflow,
+                              pmax=self.pmax, devices=1,
+                              colors=len(tables.groups),
+                              setup_s=round(t1 - t0, 4),
+                              opt_s=round(t2 - t1, 4))
+
+            if it > 1 and (energy - newenergy < newenergy * 0.01):
+                break
+
+            # apply labeling: unfold + warp on the device
+            # (group_mesh_registration.cpp:104-115)
+            dg_coords, cp, spac = self._apply_fn(dg_coords, cp, labeling)
+            energy = newenergy
+            self._log_metrics(event="warp", level=self.level, iter=it,
+                              warp_s=round(self._clock() - t2, 4))
+
+        sync_host_meshes()
+
+    # ---- outputs ---------------------------------------------------------
+    def _out(self, name: str) -> str:
+        d = os.path.dirname(self.outdir)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        return self.outdir + name
+
+    def _write_outputs(self):
+        S = len(self.meshes)
+        self.transformed_data = [None] * S
+        for s in range(S):
+            mesh = self.meshes[s]
+            warped = rsp.sphere_project_warp(mesh, self.sph_orig,
+                                             self.sph_reg[s], self.device)
+            warped.save(self._out(f"sphere-{s}.reg" + self.surf_format))
+            carrier = Mesh(coords=warped.coords, faces=warped.faces,
+                           data=self.datasets[s])
+            res, _ = rsp.metric_resample(carrier, self.template,
+                                         device=self.device)
+            res.save(self._out(f"transformed_and_reprojected-{s}"
+                               + self.data_format))
+            self.transformed_data[s] = res.data

@@ -1,7 +1,9 @@
 """Tests of newmsm_tpu_torch that need a CUDA card: the hand-written
 locate kernel against its plain PyTorch version on the card (on the
-sphere, off it, and at the size of a triclique call), and the MCMC colour
-scatter and the face-patch scatter on the card against the CPU. They skip
+sphere, off it, and at the size of a triclique call), the MCMC colour
+scatter and the face-patch scatter on the card against the CPU, and the
+groupwise path's fusion tables and label maps on the card against the CPU.
+They skip
 without one. The machine with the card has no JAX, so this file imports
 neither JAX nor the JAX package, and is run there without tests/conftest.py
 (which imports JAX):
@@ -170,3 +172,117 @@ def test_face_patch_scatter_is_the_same_on_cuda_and_cpu(cuda, fmax):
     for a, b in zip(*out):
         np.testing.assert_array_equal(a, b)
     assert out[0][2].any() == (fmax == 3)
+
+
+def _group_problem(device, S=3, seed=5):
+    """A group level's statics and warped state on `device` (CP ico-1,
+    template ico-3, 2 channels), from numpy seeds."""
+    from newmsm_tpu_torch.ops.nearest import build_tables
+    from newmsm_tpu_torch.parallel import group_fusion as GF
+    from newmsm_tpu_torch.reg.sampling_grid import build_sampling_grid
+    control = Mesh.from_icosphere(1)
+    template = Mesh.from_icosphere(3)
+    sg = build_sampling_grid(3, 0.5 * control.calculate_MaxVD())
+    K = control.nvertices
+    trip = np.sort(control.faces.astype(np.int64), axis=1)
+    rng = np.random.default_rng(seed)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32).to(device)
+
+    st = GF.GroupLevelStatics(
+        labels=f32(sg.samples), centre=f32(sg.centre),
+        orig_cp=f32(control.coords), cp_faces=torch.as_tensor(trip).to(device),
+        tmpl_coords=f32(template.coords), mask_w=None,
+        cp_search=build_tables(control.coords, control.faces,
+                               control.adjacency[2], device),
+        mu=0.4, kappa=1.6, k_exp=2.0, rexp=2.0, reglambda=0.1,
+        subcorr=0.1 * S, simval=2, percentile=0.75, pmax=128, cprange=1.0,
+        fixnan=False)
+    cp = np.broadcast_to(control.coords, (S, K, 3)).copy()
+    cp += rng.normal(size=cp.shape) * 1.5
+    cp /= np.linalg.norm(cp, axis=-1, keepdims=True) / 100.0
+    spac = np.broadcast_to(control.max_vertex_distances(), (S, K)).copy()
+    maps = rng.normal(size=(S, len(sg.samples), 2, template.nvertices))
+    lab0 = rng.integers(0, len(sg.samples), S * K)
+    return st, trip, f32(cp), f32(spac), f32(maps), torch.as_tensor(lab0).to(
+        device)
+
+
+@pytest.mark.cuda
+def test_group_fusion_tables_are_the_same_on_cuda_and_cpu(cuda):
+    """From the same state: equal partner map, colouring and patch_need;
+    one alpha step's triplet tables rtol 1e-3 with equal FOLDING entries
+    (float32 strains: the card's sin / cos / acos differ from the CPU's in
+    the last bits, and a small strain is a difference of near-equal terms;
+    measured 5.3e-4 on an H100), pair tables atol 1e-4; and, from the same
+    injected starts, the same labeling after the step but for at most 2 %
+    of the nodes (near-tie flips)."""
+    from newmsm_tpu_torch.parallel import group_fusion as GF
+    S = 3
+    out = {}
+    starts = torch.randint(0, 2, (2, S * 42),
+                           generator=torch.Generator().manual_seed(1))
+    for dev in (torch.device("cpu"), cuda):
+        st, trip, cp, spac, maps, lab0 = _group_problem(dev, S)
+        partner = GF.make_partner_fn(st, S)(cp)
+        tables = GF.build_iteration_tables(partner.cpu().numpy(), trip, S, 42,
+                                           dev)
+        fusion = GF.make_fusion_fn(st, S, random_starts=lambda alpha: starts)
+        state = fusion.prepare(cp, spac)
+        t8, p4 = fusion.build_tables_for(state, maps, partner,
+                                         lab0.reshape(S, 42), 4)
+        lab = fusion.alpha_step(state, maps, partner, tables,
+                                fusion.pair_endpoints(partner), lab0, 4)
+        assert t8.device.type == dev.type
+        out[dev.type] = (partner.cpu().numpy(), tables.colors,
+                         int(state["patch_need"]), t8.cpu().numpy(),
+                         p4.cpu().numpy(), lab.cpu().numpy())
+    c, g = out["cpu"], out["cuda"]
+    np.testing.assert_array_equal(g[0], c[0])
+    np.testing.assert_array_equal(g[1], c[1])
+    assert g[2] == c[2]
+    np.testing.assert_array_equal(g[3] >= 1e7, c[3] >= 1e7)
+    np.testing.assert_allclose(g[3], c[3], rtol=1e-3, atol=1e-6)
+    np.testing.assert_allclose(g[4], c[4], atol=1e-4)
+    assert (g[5] != c[5]).mean() <= 0.02, (g[5] != c[5]).sum()
+    assert (g[5] == 4).any()
+
+
+@pytest.mark.cuda
+def test_label_deformed_maps_go_through_the_kernel(cuda):
+    """On the card every label's reverse map is one kernel launch of N
+    queries; against the plain version (the same function on the CPU): all
+    entries within 1e-3, all but 1e-3 of them within 1e-4 (the kernel's
+    ties against its twin are boundary ties, which move a ~0 weight)."""
+    from newmsm_tpu_torch.eval.synth import smooth_sphere_warp
+    from newmsm_tpu_torch.ops import locate, resample as rsp
+    from newmsm_tpu_torch.ops.nearest import build_tables
+    from newmsm_tpu_torch.reg.sampling_grid import build_sampling_grid
+    res = 4
+    dg = Mesh.from_icosphere(res)
+    warped = smooth_sphere_warp(dg.coords / 100.0, 3, 4.0) * 100.0
+    tm = Mesh.from_icosphere(res)
+    control = Mesh.from_icosphere(2)
+    sg = build_sampling_grid(4, 0.5 * control.calculate_MaxVD())
+    data = np.random.default_rng(0).normal(size=(2, dg.nvertices))
+    tri_idx = dg.adjacency[2]
+    got = {}
+    for dev in (torch.device("cpu"), cuda):
+        def f32(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float32).to(dev)
+        tabs = build_tables(dg.coords, dg.faces, tri_idx, dev)
+        ttm = build_tables(tm.coords, tm.faces, tm.adjacency[2], dev)
+        assert ttm.pristine_res == res
+        before = locate.LAUNCHES
+        got[dev.type] = rsp.label_deformed_maps(
+            f32(warped), f32(data), tabs.faces,
+            torch.as_tensor(tri_idx.astype(np.int64)).to(dev),
+            tabs.ring_faces, tabs.ring_verts, f32(sg.samples), f32(sg.centre),
+            ttm, f32(tm.vertex_area()),
+            cap=rsp._adaptive_cap(dg.nvertices, tm.nvertices)).cpu().numpy()
+        launched = locate.LAUNCHES - before
+        assert launched == (len(sg.samples) if dev.type == "cuda" else 0)
+    err = np.abs(got["cuda"] - got["cpu"])
+    assert err.max() < 1e-3, err.max()
+    assert (err > 1e-4).mean() <= 1e-3, (err > 1e-4).sum()

@@ -1,5 +1,6 @@
 """The port's own host modules (core.icosphere, core.mesh, core.io,
-reg.config, reg.sampling_grid, reg.optimise.coloring, eval.synth) against
+reg.config, reg.sampling_grid, reg.optimise.coloring, eval.synth,
+pipelines.cohort, eval.reports) against
 the JAX package's modules they are copies of, and the port's whole-array
 table code against the per-vertex loops it replaces (kept here as the
 oracle). Integer tables are held to equality; float tolerances are stated
@@ -452,3 +453,91 @@ def test_device_defaults_to_cuda_and_never_falls_back():
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+# --------------------------------------------- cohort bookkeeping and reports
+
+def _toy_cohort_files(d):
+    """Groups A(12) B(11) C(3) D(10) under (A,B)->N1, (C,D)->N2,
+    (N1,N2)->ROOT, as the two CSV files the reference scripts read."""
+    groups = {"A": [f"a{i}" for i in range(12)],
+              "B": [f"b{i}" for i in range(11)],
+              "C": [f"c{i}" for i in range(3)],
+              "D": [f"d{i}" for i in range(10)]}
+    hierarchy = [("A", "B", "N1"), ("C", "D", "N2"), ("N1", "N2", "ROOT")]
+    with open(d / "clusters.csv", "w") as f:
+        n = 0
+        for g, subs in groups.items():
+            for s in subs:
+                f.write(f"{n},{s},{g}\n")
+                n += 1
+    with open(d / "hier.csv", "w") as f:
+        for row in hierarchy:
+            f.write(",".join(row) + "\n")
+    return str(d / "clusters.csv"), str(d / "hier.csv")
+
+
+@pytest.mark.parametrize("min_size", [10, 3, 11])
+def test_cohort_bookkeeping_matches(tmp_path, min_size):
+    """pipelines.cohort (host-only): the CSV readers, extract_info, the
+    study files and gen_order give the JAX package's results, field by
+    field and byte by byte."""
+    from newmsm_tpu.pipelines import cohort as jc
+    from newmsm_tpu_torch.pipelines import cohort as tc
+    cl, hi = _toy_cohort_files(tmp_path)
+    assert tc.read_clustering(cl) == jc.read_clustering(cl)
+    assert tc.read_hierarchy(hi) == jc.read_hierarchy(hi)
+    js = jc.extract_info(cl, hi, "ROOT", min_size=min_size)
+    ts = tc.extract_info(cl, hi, "ROOT", min_size=min_size)
+    assert dataclasses.asdict(ts) == dataclasses.asdict(js)
+    assert list(ts.groups) == list(js.groups)          # order too
+    jc.write_study_files(js, str(tmp_path / "j"))
+    tc.write_study_files(ts, str(tmp_path / "t"))
+    names = sorted(p.name for p in (tmp_path / "j").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "t").iterdir())
+    assert len(names) == 3
+    for name in names:
+        assert (tmp_path / "t" / name).read_bytes() == \
+            (tmp_path / "j" / name).read_bytes(), name
+    assert tc.gen_order(ts.groups, ts.tree) == jc.gen_order(js.groups, js.tree)
+    assert tc.gen_order(ts.groups, list(reversed(ts.tree))) == \
+        jc.gen_order(js.groups, list(reversed(js.tree)))
+
+
+def test_cohort_bookkeeping_rejects_like_the_original(tmp_path):
+    from newmsm_tpu_torch.pipelines import cohort as tc
+    cl, hi = _toy_cohort_files(tmp_path)
+    with pytest.raises(ValueError, match="min_size"):
+        tc.extract_info(cl, hi, "ROOT", min_size=100)
+    st = tc.extract_info(cl, hi, "ROOT", min_size=10)
+    with pytest.raises(ValueError, match="unknown group"):
+        tc.gen_order(st.groups, [("A", "NOPE", "N1")])
+    # a chain-like dendrogram far past the recursion limit
+    hierarchy = [("A", "B", "n0")] + [(f"n{i}", f"leaf{i}", f"n{i + 1}")
+                                      for i in range(5000)]
+    deep = tc.extract_info(st.groups, hierarchy, "n5000", min_size=10)
+    assert deep.tree == [("A", "B", "n0")]
+
+
+def test_reports_match(tmp_path):
+    """eval.reports (host-only): the CSV bytes, the table read back, and a
+    distortion chart."""
+    from newmsm_tpu.eval import reports as jr
+    from newmsm_tpu_torch.eval import reports as tr
+    assert tr.STAT_COLUMNS == jr.STAT_COLUMNS
+    stats = {"A": {"cc": 0.8, "dice": 0.6, "areal_mean": 0.2,
+                   "areal_max": 1.0, "areal_95": 0.5, "areal_98": 0.6,
+                   "shape_mean": 0.4, "shape_max": 1.5},
+             "B": {"cc": 0.7, "dice": 0.5, "areal_mean": 0.3}}
+    jr.group_stats_csv(stats, str(tmp_path / "j.csv"))
+    tr.group_stats_csv(stats, str(tmp_path / "t.csv"))
+    assert (tmp_path / "t.csv").read_bytes() == (tmp_path / "j.csv").read_bytes()
+    back = tr.read_group_stats_csv(str(tmp_path / "t.csv"))
+    assert back == jr.read_group_stats_csv(str(tmp_path / "j.csv"))
+    assert back["A"]["cc"] == pytest.approx(0.8) and "dice" in back["B"]
+    assert "shape_max" not in back["B"]
+    rng = np.random.default_rng(0)
+    tr.plot_distortions({"A": [rng.normal(size=100)],
+                         "B": [rng.normal(size=100)]},
+                        str(tmp_path / "dist.png"))
+    assert (tmp_path / "dist.png").stat().st_size > 1000

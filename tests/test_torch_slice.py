@@ -193,9 +193,13 @@ def test_slice_matches_jax_through_the_cli(slice_inputs, monkeypatch):
 
 
 def test_cli_device_flag():
-    """--device cuda without a card raises; --groupwise is not ported."""
+    """--device cuda without a card raises, for --groupwise too (the
+    default device is cuda); --groupwise on the CPU reads its list files."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tcli.main(["--inmesh", "x.surf.gii", "--device", "cuda"])
-    with pytest.raises(NotImplementedError, match="groupwise"):
-        tcli.main(["--groupwise"])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tcli.main(["--groupwise"])
+    with pytest.raises(FileNotFoundError):
+        tcli.main(["--groupwise", "--device", "cpu", "--meshes",
+                   "no_such_list.txt"])

@@ -1,7 +1,7 @@
 """newmsm_tpu_torch stands alone: with JAX and the JAX package made
 unimportable, every module of the port and chip_smoke.py import, and the
-port's CLI registers a small synthetic subject on the CPU; and no source
-line of the port imports the JAX package."""
+port's CLI registers a small synthetic subject, and a group of three, on the
+CPU; and no source line of the port imports the JAX package."""
 import ast
 import os
 import pathlib
@@ -74,11 +74,17 @@ def test_blocker_refuses_the_jax_package_only():
 
 def test_every_module_and_chip_smoke_import_without_the_jax_package():
     mods = _port_modules()
-    assert len(mods) >= 23
+    assert len(mods) >= 32
+    for new in ("parallel.group_fusion", "reg.group", "pipelines.gmsm",
+                "pipelines.cohort", "eval.reports", "tools.resample_tools",
+                "core.sparse"):
+        assert "newmsm_tpu_torch." + new in mods, new
     proc = _run("import importlib\n"
                 f"for m in {mods!r}: importlib.import_module(m)\n"
                 "import chip_smoke\n"
                 "assert chip_smoke.STRAIN_CONFIG and chip_smoke.MAIN_RES == 6\n"
+                "assert chip_smoke.GROUP_CONFIG and chip_smoke.GROUP_SUBJECTS == 6\n"
+                "assert 'matplotlib' not in sys.modules\n"
                 "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
                 "('jax', 'jaxlib', 'newmsm_tpu'))\n"
                 "assert not bad, bad\n")
@@ -124,6 +130,67 @@ print("registered")
     assert (tmp_path / "out_sphere.reg.surf.gii").exists()
 
 
+GROUP_CONFIG = """\
+--opt=DISCRETE
+--simval=2
+--it=2
+--sigma_in=0
+--sigma_ref=0
+--lambda=0.1
+--datagrid=3
+--CPgrid=1
+--SGgrid=3
+--dopt=HOCR
+--regoption=3
+"""
+
+
+def test_cli_registers_a_group_without_the_jax_package(tmp_path):
+    """--groupwise --device cpu on three ico-3 synth_cohort subjects with
+    list files: one fold-free sphere and one finite transformed map a
+    subject, and the mean pairwise sulc CC raised."""
+    code = f'''
+import numpy as np
+d = {str(tmp_path)!r}
+from newmsm_tpu_torch import cli
+from newmsm_tpu_torch.core import io as mio
+from newmsm_tpu_torch.core.mesh import Mesh
+from newmsm_tpu_torch.eval.metrics import mean_pairwise_cc
+from newmsm_tpu_torch.eval.synth import synth_cohort
+from newmsm_tpu_torch.ops.unfold import count_folds
+meshes, datasets, _ = synth_cohort(3, 3, seed=0, warp_deg=6.0)
+template = Mesh.from_icosphere(3)
+template.save(f"{{d}}/template.surf.gii")
+for s, (mesh, data) in enumerate(zip(meshes, datasets)):
+    mesh.save(f"{{d}}/s{{s}}.surf.gii")
+    Mesh(coords=mesh.coords, faces=mesh.faces, data=data).save(
+        f"{{d}}/s{{s}}.func.gii")
+open(f"{{d}}/meshes.txt", "w").write(
+    "".join(f"{{d}}/s{{s}}.surf.gii\\n" for s in range(3)))
+open(f"{{d}}/data.txt", "w").write(
+    "".join(f"{{d}}/s{{s}}.func.gii\\n" for s in range(3)))
+open(f"{{d}}/conf", "w").write({GROUP_CONFIG!r})
+rc = cli.main(["--groupwise", "--meshes", f"{{d}}/meshes.txt", "--data",
+               f"{{d}}/data.txt", "--template", f"{{d}}/template.surf.gii",
+               "--conf", f"{{d}}/conf", "-o", f"{{d}}/out_", "--device", "cpu"])
+assert rc == 0
+maps = []
+for s in range(3):
+    warped = Mesh.load(f"{{d}}/out_sphere-{{s}}.reg.surf.gii")
+    assert warped.coords.shape == (642, 3)
+    assert count_folds(warped, device="cpu") == 0
+    maps.append(mio.load_data(
+        f"{{d}}/out_transformed_and_reprojected-{{s}}.func.gii", template))
+    assert maps[-1].shape == (2, 642) and np.isfinite(maps[-1]).all()
+assert mean_pairwise_cc([m[0] for m in maps]) > mean_pairwise_cc(
+    [x[0] for x in datasets])
+print("group registered")
+'''
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "group registered" in proc.stdout
+
+
 def _imports(path):
     """(module, line) of every import statement of a source file: the
     syntax tree, so docstrings and comments do not count."""
@@ -138,7 +205,7 @@ def _imports(path):
 @pytest.mark.parametrize("banned", ["newmsm_tpu", "jax"])
 def test_no_source_line_imports(banned):
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 30
+    assert len(files) >= 40
     hits = [(str(f.relative_to(ROOT)), line, mod) for f in files
             for mod, line in _imports(f) if mod.split(".")[0] == banned]
     assert not hits, hits
