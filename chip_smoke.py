@@ -40,14 +40,24 @@ no result line:
               patches were not truncated, the mean pairwise sulc CC and the
               kernel's launches; then pipelines.gmsm.dedrift on those
               spheres and one small run_gmsm call (3 subjects, ico-4);
-  9. timing   the kernel and its plain version at the shape of the main
+  9. group_sharded  the subject-sharded group path on the same inputs and
+              config: the CLI under `torch.distributed.run --standalone
+              --nproc_per_node=2 ... --dist-backend gloo` (two ranks sharing
+              the card), then the ring maps exchange at two spawned ranks on
+              the config's first two levels, then the CLI under NCCL when
+              there are two cards; energies, and the CLI's spheres, bitwise
+              those of phase 8; per-rank stage seconds, launches and peak
+              memory;
+ 10. timing   the kernel and its plain version at the shape of the main
               path's largest locate call: windows of back-to-back launches
               between CUDA events (median and spread), the SM clock and
               power sampled under the load, the roofline bound and the
               issue-slot bound from the SASS instruction count.
 
 Phases 4 to 8 each set the kernel's launch count to 0 before the CLI call
-and read it after; a path that never launched the kernel fails the run.
+and read it after; phase 9's ranks are fresh processes, whose counts start
+at 0 and are read from each rank. A path that never launched the kernel,
+on any rank, fails the run, and so does a failing rank.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Imports neither JAX nor the JAX package.
 """
@@ -844,7 +854,184 @@ def phase_group(torch, workdir, profile=False):
           and np.isfinite(res.mean_map).all(), "group: mean map malformed")
     check(res.stats["cc"] > metrics.mean_pairwise_cc([d[0] for d in sd]),
           "group: run_gmsm did not raise the mean pairwise CC")
-    return launches
+    run = dict(lists=lists, tmpl=tmpl_path, conf=conf, S=S, template=template,
+               energies=[e["energy"] for e in iters],
+               levels=[e["level"] for e in iters],
+               spheres=[m.coords for m in spheres], maps=maps)
+    return launches, run
+
+
+def _first_levels(config: str, n: int) -> str:
+    """The config with every per-level list cut to its first n levels."""
+    out = []
+    for line in config.splitlines():
+        key, eq, vals = line.partition("=")
+        out.append(key + eq + ",".join(vals.split(",")[:n]) if "," in vals
+                   else line)
+    return "\n".join(out) + "\n"
+
+
+def run_ranks_cmd(cmd, timeout):
+    """Run a command that starts rank processes in a process group of its
+    own; on the time limit the whole group is killed, ranks included.
+    Returns (returncode, stdout, stderr)."""
+    import signal
+    env = dict(os.environ, OMP_NUM_THREADS="4",
+               PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            process_group=0)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        return 124, out, err
+    return proc.returncode, out, err
+
+
+def _torchrun_group(workdir, ref, tag, backend):
+    """phase_group's CLI call under torchrun, 2 ranks on --device cuda with
+    `backend`; checks energies, devices and spheres against phase_group
+    bitwise. Returns (locate launches summed over the ranks, the largest
+    call) and the level walls."""
+    from newmsm_tpu_torch.core import io as mio
+    from newmsm_tpu_torch.core.mesh import Mesh
+    out = os.path.join(workdir, f"{tag}_out_")
+    metrics_path = out + "metrics.jsonl"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=2", "-m", "newmsm_tpu_torch.cli", "--groupwise",
+           "--meshes", ref["lists"]["meshes"], "--data", ref["lists"]["data"],
+           "--template", ref["tmpl"], "-o", out, "--conf", ref["conf"],
+           "--metrics", metrics_path, "--device", "cuda", "--dist-backend",
+           backend]
+    t0 = time.perf_counter()
+    rc, stdout, stderr = run_ranks_cmd(cmd, timeout=600)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"{tag}: torchrun returned {rc}\n{stdout[-2000:]}\n"
+                   f"{stderr[-6000:]}")
+    events = [json.loads(line) for line in open(metrics_path)]
+    iters = [e for e in events if e["event"] == "iter"]
+    ranks = [e for e in events if e["event"] == "ranks"]
+    check(len(ranks) == 1, f"{tag}: {len(ranks)} ranks events, not 1")
+    ranks = ranks[0]
+    print(f"{tag}: torchrun, 2 ranks on --device cuda --dist-backend "
+          f"{backend}: wall {wall:.2f} s (rank start-up included)")
+    for e in events:
+        if e["event"] == "level":
+            print(f"{tag}: level {e['level']}: wall {e['wall_s']} s, of "
+                  f"which level set-up {e['init_s']} s")
+        elif e["event"] == "iter":
+            print(f"{tag}: iter level {e['level']} it {e['iter']}: energy "
+                  f"{e['energy']:.6f} devices {e['devices']} maps_exchange "
+                  f"{e['maps_exchange']} setup_s by rank "
+                  f"{e['setup_s_by_rank']} opt_s by rank {e['opt_s_by_rank']}")
+    print(f"{tag}: locate_bary launches by rank {ranks['locate_launches']} "
+          f"(largest call by rank {ranks['locate_largest']}); peak device "
+          f"memory by rank "
+          f"{[round(b / 2**30, 3) for b in ranks['peak_device_bytes']]} GiB")
+    check(all(e["devices"] == 2 for e in iters),
+          f"{tag}: an iter event does not read devices 2")
+    check(min(ranks["locate_launches"]) > 0,
+          f"{tag}: a rank never launched the locate kernel")
+    energies = [e["energy"] for e in iters]
+    same_e = energies == ref["energies"]
+    same_s = [np.array_equal(Mesh.load(out + f"sphere-{s}.reg.surf.gii")
+                             .coords, ref["spheres"][s])
+              for s in range(ref["S"])]
+    same_m = [np.array_equal(mio.load_data(
+        out + f"transformed_and_reprojected-{s}.func.gii", ref["template"]),
+        ref["maps"][s]) for s in range(ref["S"])]
+    print(f"{tag}: energies bitwise those of phase group: {same_e}; "
+          f"spheres bitwise equal by subject {same_s}; transformed maps "
+          f"bitwise equal by subject {same_m}")
+    check(same_e, f"{tag}: energies {energies} differ from phase group's "
+                  f"{ref['energies']}")
+    check(all(same_s), f"{tag}: output spheres differ from phase group's")
+    check(all(same_m), f"{tag}: transformed maps differ from phase group's")
+    walls = [e["wall_s"] for e in events if e["event"] == "level"]
+    return (sum(ranks["locate_launches"]), max(ranks["locate_largest"])), walls
+
+
+def _group_ring_rank(lists, tmpl_path, conf, out, device="cuda"):
+    """One rank of phase_group_sharded's ring run (spawned): the group
+    driver with maps_exchange 'ring' on this rank's device."""
+    import torch
+    import torch.distributed as dist
+    from newmsm_tpu_torch.cli import read_list_file
+    from newmsm_tpu_torch.ops import locate
+    from newmsm_tpu_torch.parallel import multihost as mh
+    from newmsm_tpu_torch.reg.group import GroupMeshRegistration
+    g = GroupMeshRegistration(device=mh.rank_device(device),
+                              group=dist.group.WORLD)
+    g.maps_exchange = "ring"
+    g.outdir = out
+    g.metrics_path = out + "metrics.jsonl"
+    g.set_inputs(read_list_file(lists["meshes"]))
+    g.set_data_list(read_list_file(lists["data"]))
+    g.set_template(tmpl_path)
+    g.run_multiresolutions(conf)
+    cuda = g.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    return dict(energies=[e for _, _, e in g.energy_log],
+                levels=[lv for lv, _, _ in g.energy_log],
+                exchange=g._maps_exchange_used, world=g.comm.world,
+                launches=locate.LAUNCHES, largest=locate.LARGEST,
+                peak=torch.cuda.max_memory_allocated() if cuda else -1)
+
+
+def phase_group_sharded(torch, workdir, ref):
+    """The subject-sharded group path on phase_group's inputs and config:
+    (a) the CLI under torchrun, 2 ranks sharing the card under gloo; (b)
+    the ring maps exchange at 2 ranks, spawned from here, on the config's
+    first two levels; (c) (a) under NCCL, one card a rank, when there are
+    two cards. Each must reproduce phase_group bitwise. The ranks share one
+    card in (a) and (b): a correctness run, not a scaling one."""
+    from newmsm_tpu_torch.parallel import multihost as mh
+    t0 = time.perf_counter()
+    by_path = {}
+    by_path["group_sharded"], gather_walls = _torchrun_group(
+        workdir, ref, "group_sharded", "gloo")
+    conf2 = os.path.join(workdir, "group_two_levels.conf")
+    with open(conf2, "w") as f:
+        f.write(_first_levels(GROUP_CONFIG, 2))
+    t1 = time.perf_counter()
+    ring_out = os.path.join(workdir, "group_ring_out_")
+    ring = mh.run_local_ranks(
+        _group_ring_rank, 2, backend="gloo", timeout=600,
+        args=(ref["lists"], ref["tmpl"], conf2, ring_out))
+    ring_walls = [e["wall_s"] for e in map(json.loads, open(
+        ring_out + "metrics.jsonl")) if e["event"] == "level"]
+    print(f"group_ring: level walls, levels 1-2, W = 2 on the one card: "
+          f"ring {ring_walls} s, gather (the torchrun run above) "
+          f"{gather_walls[:2]} s")
+    want = [e for e, lv in zip(ref["energies"], ref["levels"]) if lv <= 2]
+    print(f"group_ring: 2 ranks, maps_exchange "
+          f"{[r['exchange'] for r in ring]}, levels 1-2 of the config: wall "
+          f"{time.perf_counter() - t1:.2f} s (spawn included); locate_bary "
+          f"launches by rank {[r['launches'] for r in ring]}; peak device "
+          f"memory by rank {[round(r['peak'] / 2**30, 3) for r in ring]} "
+          f"GiB; energies bitwise those of phase group's levels 1-2: "
+          f"{[r['energies'] == want for r in ring]}")
+    check(all(r["exchange"] == "ring" and r["world"] == 2 for r in ring),
+          "group_ring: not a 2-rank ring run")
+    check(all(r["energies"] == want for r in ring),
+          f"group_ring: energies {[r['energies'] for r in ring]} differ "
+          f"from phase group's levels 1-2 {want}")
+    check(min(r["launches"] for r in ring) > 0,
+          "group_ring: a rank never launched the locate kernel")
+    by_path["group_ring"] = (sum(r["launches"] for r in ring),
+                             max(r["largest"] for r in ring))
+    if torch.cuda.device_count() >= 2:
+        by_path["group_sharded_nccl"], _ = _torchrun_group(
+            workdir, ref, "group_sharded_nccl", "nccl")
+    else:
+        print("group_sharded_nccl: not run: this machine has "
+              f"{torch.cuda.device_count()} card, and NCCL refuses two ranks "
+              "on one card")
+    print(f"group_sharded: phase wall {time.perf_counter() - t0:.2f} s")
+    return by_path
 
 
 def main(argv=None) -> int:
@@ -858,6 +1045,7 @@ def main(argv=None) -> int:
                          "(one iteration) under --profile and print the "
                          "share of the time a kernel is on the card")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -884,7 +1072,9 @@ def main(argv=None) -> int:
                                            args.warm_runs)
         by_path["amsm"] = phase_amsm(torch, workdir, args.warm_runs)
         by_path["mcmc"] = phase_mcmc(torch, workdir)
-        by_path["group"] = phase_group(torch, workdir, args.profile_group)
+        by_path["group"], group_run = phase_group(torch, workdir,
+                                                  args.profile_group)
+        by_path.update(phase_group_sharded(torch, workdir, group_run))
     k, plain, roof = phase_timing(torch, n_queries, MAIN_RES)
     # and at the largest call of the new paths (triclique / anatomical)
     largest = max(n for _, n in by_path.values())
@@ -903,6 +1093,7 @@ def main(argv=None) -> int:
         "queries": n_queries, "largest_call": {
             "queries": largest, "ms": kl["ms"], "plain_ms": plainl["ms"],
             "bound_ms": roofl["bound_ms"], "bound_by": roofl["bound_by"]}}]}))
+    print(f"chip_smoke: whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,11 +12,25 @@ trace), and the groupwise mode:
 
     python -m newmsm_tpu_torch.cli --groupwise --meshes meshes.txt \\
         --data data.txt --template template.surf.gii -o out/ --conf config
+
+The groupwise mode runs subject-sharded over W ranks under torchrun (or
+SLURM with MASTER_ADDR / MASTER_PORT set), each rank on its own device
+(cuda:{LOCAL_RANK % cards}, or the CPU):
+
+    python -m torch.distributed.run --standalone --nproc_per_node=W \\
+        -m newmsm_tpu_torch.cli --groupwise ... [--device cpu] \\
+        [--dist-backend gloo|nccl]
+
+--dist-backend defaults to gloo on the CPU and nccl on CUDA when every rank
+has a card; ranks that share a card must name gloo. Without rank variables
+the CLI is one process on one device.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+
+from . import resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,6 +71,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "trace.json) to this directory")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
+    p.add_argument("--dist-backend", default=None, choices=["gloo", "nccl"],
+                   help="groupwise under torchrun: the torch.distributed "
+                        "backend (default gloo on the CPU, nccl on CUDA "
+                        "with a card per rank)")
     return p
 
 
@@ -79,21 +97,31 @@ def main(argv=None) -> int:
         print_config_options()
         return 0
     if args.groupwise:
+        import torch.distributed as dist
+        from .parallel import multihost as mh
         from .reg.group import GroupMeshRegistration
-        gmr = GroupMeshRegistration(device=args.device)
-        if args.verbose:
-            print(f"This is newmsm_tpu_torch on {gmr.device}.")
-        gmr.verbose = args.verbose
-        gmr.debug = args.debug
-        gmr.metrics_path = args.metrics or None
-        gmr.profile_dir = args.profile or None
-        gmr.outdir = args.out
-        gmr.set_inputs(read_list_file(args.meshes))
-        gmr.set_data_list(read_list_file(args.data))
-        gmr.set_template(args.template)
-        if args.mask:
-            gmr.set_mask(args.mask)
-        gmr.run_multiresolutions(args.conf or None)
+        device = resolve_device(args.device)
+        mh.initialize(args.dist_backend, device)
+        try:
+            gmr = GroupMeshRegistration(
+                device=mh.rank_device(device),
+                group=dist.group.WORLD if dist.is_initialized() else None)
+            if args.verbose:
+                print(f"This is newmsm_tpu_torch on {gmr.device}, rank "
+                      f"{gmr.comm.rank} of {gmr.comm.world}.")
+            gmr.verbose = args.verbose
+            gmr.debug = args.debug
+            gmr.metrics_path = args.metrics or None
+            gmr.profile_dir = args.profile or None
+            gmr.outdir = args.out
+            gmr.set_inputs(read_list_file(args.meshes))
+            gmr.set_data_list(read_list_file(args.data))
+            gmr.set_template(args.template)
+            if args.mask:
+                gmr.set_mask(args.mask)
+            gmr.run_multiresolutions(args.conf or None)
+        finally:
+            mh.shutdown()
         return 0
     if not args.inmesh:
         print("error: --inmesh is required", file=sys.stderr)

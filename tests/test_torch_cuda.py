@@ -1,9 +1,10 @@
 """Tests of newmsm_tpu_torch that need a CUDA card: the hand-written
 locate kernel against its plain PyTorch version on the card (on the
 sphere, off it, and at the size of a triclique call), the MCMC colour
-scatter and the face-patch scatter on the card against the CPU, and the
-groupwise path's fusion tables and label maps on the card against the CPU.
-They skip
+scatter and the face-patch scatter on the card against the CPU, the
+groupwise path's fusion tables and label maps on the card against the CPU,
+and its subject-sharded fusion call on the card (a 1-rank NCCL group, two
+gloo ranks sharing the card) against the one-device call. They skip
 without one. The machine with the card has no JAX, so this file imports
 neither JAX nor the JAX package, and is run there without tests/conftest.py
 (which imports JAX):
@@ -286,3 +287,57 @@ def test_label_deformed_maps_go_through_the_kernel(cuda):
     err = np.abs(got["cuda"] - got["cpu"])
     assert err.max() < 1e-3, err.max()
     assert (err > 1e-4).mean() <= 1e-3, (err > 1e-4).sum()
+
+
+def _sharded_fusion_on_card(S, exchange):
+    """One fusion call of _group_problem(cuda:0, S) from labeling lab0 over
+    the default process group's ranks (this process alone when there is
+    none), every rank on cuda:0; numpy results."""
+    from newmsm_tpu_torch.parallel import group_fusion as GF
+    from newmsm_tpu_torch.parallel import multihost as mh
+    dev = torch.device("cuda", 0)
+    st, trip, cp, spac, maps, lab0 = _group_problem(dev, S)
+    comm = mh.default_comm()
+    own = mh.process_subject_slice(S, comm)
+    partner = GF.make_partner_fn(st, S, comm)(cp[own])
+    tables = GF.build_iteration_tables(partner.cpu().numpy(), trip, S, 42,
+                                       dev)
+    fusion = GF.make_fusion_fn(st._replace(sweeps=1), S, comm=comm,
+                               maps_exchange=exchange)
+    lab, energy, need = fusion(maps[own], cp[own], spac[own], lab0, partner,
+                               tables)
+    return (partner.cpu().numpy(), lab.cpu().numpy(), float(energy),
+            int(need))
+
+
+def _assert_same_fusion(got, want):
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2:] == want[2:], (got[2:], want[2:])
+
+
+@pytest.mark.cuda
+def test_fusion_under_a_one_rank_nccl_group_is_the_call_without_one(cuda):
+    """S = 4 on cuda:0: the fusion call in a 1-rank NCCL process group
+    gives bitwise the partner map, labeling, energy and patch_need of the
+    call in a process with no group."""
+    from newmsm_tpu_torch.parallel import multihost as mh
+    want = _sharded_fusion_on_card(4, "gather")
+    assert (want[1] != 0).any()
+    got, = mh.run_local_ranks(_sharded_fusion_on_card, 1, args=(4, "gather"),
+                              backend="nccl", timeout=300)
+    _assert_same_fusion(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["gather", "ring"])
+def test_two_gloo_ranks_sharing_the_card_give_the_one_device_call(cuda,
+                                                                  exchange):
+    """S = 4, two ranks on cuda:0 under gloo (NCCL refuses two ranks on
+    one card): every rank gives bitwise the one-device call's results."""
+    from newmsm_tpu_torch.parallel import multihost as mh
+    want = _sharded_fusion_on_card(4, "gather")
+    for got in mh.run_local_ranks(_sharded_fusion_on_card, 2,
+                                  args=(4, exchange), backend="gloo",
+                                  timeout=300):
+        _assert_same_fusion(got, want)

@@ -1,7 +1,8 @@
 """newmsm_tpu_torch stands alone: with JAX and the JAX package made
-unimportable, every module of the port and chip_smoke.py import, and the
-port's CLI registers a small synthetic subject, and a group of three, on the
-CPU; and no source line of the port imports the JAX package."""
+unimportable, every module of the port and chip_smoke.py import, two ranks
+run, and the port's CLI registers a small synthetic subject, and a group of
+three, on the CPU; and no source line of the port imports the JAX
+package."""
 import ast
 import os
 import pathlib
@@ -77,7 +78,8 @@ def test_every_module_and_chip_smoke_import_without_the_jax_package():
     assert len(mods) >= 32
     for new in ("parallel.group_fusion", "reg.group", "pipelines.gmsm",
                 "pipelines.cohort", "eval.reports", "tools.resample_tools",
-                "core.sparse"):
+                "core.sparse", "parallel.multihost",
+                "parallel.pairwise_sharding", "tools.group_bench"):
         assert "newmsm_tpu_torch." + new in mods, new
     proc = _run("import importlib\n"
                 f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -89,6 +91,34 @@ def test_every_module_and_chip_smoke_import_without_the_jax_package():
                 "('jax', 'jaxlib', 'newmsm_tpu'))\n"
                 "assert not bad, bad\n")
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_group_bench_writes_the_smoke_cohort_and_config(tmp_path):
+    """tools.group_bench times the CLI on chip_smoke.py's group run: the
+    same tutorial config text, and list files of every subject."""
+    proc = _run("import chip_smoke\n"
+                "from newmsm_tpu_torch.tools import group_bench as gb\n"
+                "assert gb.TUTORIAL_CONFIG.format(\n"
+                "    iters=chip_smoke.GROUP_ITERS) == chip_smoke.GROUP_CONFIG\n"
+                f"args = gb.write_inputs({str(tmp_path)!r}, 2, 2, '1,1,1')\n"
+                "lists = [args[args.index(f) + 1] for f in ('--meshes', "
+                "'--data')]\n"
+                "assert all(len(open(p).read().split()) == 2 for p in lists)\n"
+                "assert args[-2:] == ['--device', 'cuda']\n")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_ranks_run_without_the_jax_package():
+    """Two gloo ranks spawned by multihost.run_local_ranks from a process
+    that cannot import JAX, each with the process group up: each gets its
+    own subject slice."""
+    proc = _run("from newmsm_tpu_torch.parallel import multihost as mh\n"
+                "got = mh.run_local_ranks(mh.process_subject_slice, 2,\n"
+                "                         args=(4,), timeout=120, threads=1)\n"
+                "assert got == [slice(0, 2), slice(2, 4)], got\n"
+                "print('ranks ran')\n")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "ranks ran" in proc.stdout
 
 
 def test_cli_registers_a_subject_without_the_jax_package(tmp_path):
