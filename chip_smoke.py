@@ -48,15 +48,27 @@ no result line:
               there are two cards; energies, and the CLI's spheres, bitwise
               those of phase 8; per-rank stage seconds, launches and peak
               memory;
- 10. timing   the kernel and its plain version at the shape of the main
+ 10. gmsm_ranks  pipelines.gmsm.run_gmsm (registration, dedrift, resamples,
+              group statistics) on 8 ico-6 subjects, the reference's
+              8-subject tier, with phase 8's config: first in this process
+              on one rank, then over 2 ranks spawned by
+              multihost.run_local_ranks (gloo, both on the one card; NCCL,
+              one card a rank, when there are two cards); energies,
+              dedrifted spheres, mean / stdev maps and stats bitwise equal,
+              0 folds, patch_overflow 0 at each level's end, the mean
+              pairwise CC raised, K1's launches summed over the ranks equal
+              to the one-rank run's; prints the pair-block batches of each
+              level (S = 8 has 28 blocks: the chunked branch), per-rank peak
+              memory, setup_s / opt_s of each iteration and the walls;
+ 11. timing   the kernel and its plain version at the shape of the main
               path's largest locate call: windows of back-to-back launches
               between CUDA events (median and spread), the SM clock and
               power sampled under the load, the roofline bound and the
               issue-slot bound from the SASS instruction count.
 
-Phases 4 to 8 each set the kernel's launch count to 0 before the CLI call
-and read it after; phase 9's ranks are fresh processes, whose counts start
-at 0 and are read from each rank. A path that never launched the kernel,
+Phases 4 to 8 and phase 10's one-rank run each set the kernel's launch
+count to 0 before the call and read it after; the ranks of phases 9 and 10
+are fresh processes, whose counts start at 0 and are read from each rank. A path that never launched the kernel,
 on any rank, fails the run, and so does a failing rank.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Imports neither JAX nor the JAX package.
@@ -198,6 +210,10 @@ GROUP_SMALL_CONFIG = GROUP_CONFIG.replace(
     "--datagrid=4,5,6", "--datagrid=3,4,4").replace(
     "--CPgrid=2,3,4", "--CPgrid=1,2,2").replace(
     "--SGgrid=4,5,6", "--SGgrid=3,4,4")
+
+# phase_gmsm_ranks: the reference's 8-subject tier (run_gMSM.sh:14-22
+# picks its config by group size, 4 / 8 / 16)
+GMSM_SUBJECTS = 8
 
 # the last level of GROUP_CONFIG alone, one iteration: the --profile run
 GROUP_LAST_LEVEL_CONFIG = """\
@@ -760,7 +776,9 @@ def phase_group(torch, workdir, profile=False):
                   f"{e['opt_s']} warp_s "
                   f"{warp.get((e['level'], e['iter']), 'n/a')} (changed "
                   f"{e['changed']:.3f}, pmax {e['pmax']}, patch_overflow "
-                  f"{e['patch_overflow']}, colours {e['colors']})")
+                  f"{e['patch_overflow']}, colours {e['colors']}, pair-block "
+                  f"batches {e['pair_chunks_by_rank'][0]} of "
+                  f"{e['pair_chunk_blocks']})")
     check(len(iters) > 0 and all(np.isfinite(e["energy"]) for e in iters),
           "group: energies not finite")
     levels = sorted({e["level"] for e in iters})
@@ -1034,6 +1052,166 @@ def phase_group_sharded(torch, workdir, ref):
     return by_path
 
 
+def _gmsm_summary(res):
+    """What phase_gmsm_ranks holds bitwise: a GMSMResult as numpy."""
+    return dict(energies=res.energies, stats=res.stats, mean=res.mean_map,
+                stdev=res.stdev_map,
+                spheres=[m.coords for m in res.dedrifted_spheres])
+
+
+def _gmsm_rank(meshes, datasets, template, conf, metrics_path):
+    """One rank of phase_gmsm_ranks (spawned): run_gmsm over the world on
+    this rank's card; its summary, launches, wall and peak memory."""
+    import torch
+    import torch.distributed as dist
+    from newmsm_tpu_torch.ops import locate
+    from newmsm_tpu_torch.parallel import multihost as mh
+    from newmsm_tpu_torch.pipelines import gmsm
+    dev = mh.rank_device("cuda")
+    t0 = time.perf_counter()
+    res = gmsm.run_gmsm(meshes, datasets, template, conf, device=dev,
+                        group=dist.group.WORLD, metrics_path=metrics_path)
+    torch.cuda.synchronize(dev)
+    return dict(_gmsm_summary(res), wall=time.perf_counter() - t0,
+                launches=locate.LAUNCHES, largest=locate.LARGEST,
+                peak=torch.cuda.max_memory_allocated(dev), device=str(dev))
+
+
+def _same_gmsm(got, want) -> dict:
+    """Which parts of two _gmsm_summary dicts are bitwise equal."""
+    return dict(
+        energies=got["energies"] == want["energies"],
+        stats=got["stats"] == want["stats"],
+        mean=np.array_equal(got["mean"], want["mean"]),
+        stdev=np.array_equal(got["stdev"], want["stdev"]),
+        spheres=all(np.array_equal(a, b) for a, b in
+                    zip(got["spheres"], want["spheres"])))
+
+
+def _print_gmsm_iters(tag, metrics_path):
+    """The per-iteration lines of a run_gmsm metrics file; returns the iter
+    events."""
+    events = [json.loads(line) for line in open(metrics_path)]
+    iters = [e for e in events if e["event"] == "iter"]
+    for e in iters:
+        print(f"{tag}: iter level {e['level']} it {e['iter']}: energy "
+              f"{e['energy']:.6f} setup_s by rank {e['setup_s_by_rank']} "
+              f"opt_s by rank {e['opt_s_by_rank']} (pmax {e['pmax']}, "
+              f"patch_overflow {e['patch_overflow']}, pair-block batches by "
+              f"rank {e['pair_chunks_by_rank']} of "
+              f"{e['pair_chunk_blocks']} blocks)")
+    for e in events:
+        if e["event"] == "level":
+            print(f"{tag}: level {e['level']}: wall {e['wall_s']} s, of which "
+                  f"level set-up {e['init_s']} s")
+    return iters
+
+
+def phase_gmsm_ranks(torch, workdir):
+    """run_gmsm on GMSM_SUBJECTS ico-6 subjects with phase_group's config:
+    one rank in this process, then 2 spawned ranks (gloo on the one card;
+    NCCL too when there are two cards), each bitwise the one-rank run."""
+    from newmsm_tpu_torch.core.mesh import Mesh
+    from newmsm_tpu_torch.eval import metrics
+    from newmsm_tpu_torch.eval.synth import synth_cohort
+    from newmsm_tpu_torch.ops import locate
+    from newmsm_tpu_torch.ops.unfold import count_folds
+    from newmsm_tpu_torch.parallel import group_fusion as GF
+    from newmsm_tpu_torch.parallel import multihost as mh
+    from newmsm_tpu_torch.pipelines import gmsm
+
+    S = GMSM_SUBJECTS
+    t_phase = time.perf_counter()
+    meshes, datasets, _ = synth_cohort(MAIN_RES, S, seed=0)
+    template = Mesh.from_icosphere(MAIN_RES)
+    template.true_rescale(100.0)
+    conf = os.path.join(workdir, "gmsm_ranks.conf")
+    with open(conf, "w") as f:
+        f.write(GROUP_CONFIG)
+    print(f"gmsm_ranks: run_gmsm on {S} ico-{MAIN_RES} subjects "
+          f"(synth_cohort({MAIN_RES}, {S}, seed=0), sulc + curv), ico-"
+          f"{MAIN_RES} template, {len(GF.pair_blocks(S))} pair blocks; "
+          f"reduced: --it={GROUP_ITERS} (the gMSM tutorial config has "
+          f"--it={GROUP_STANDARD_ITERS}); nothing else cut")
+
+    one_metrics = os.path.join(workdir, "gmsm_one_metrics.jsonl")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    locate.LAUNCHES = locate.LARGEST = 0
+    t0 = time.perf_counter()
+    res = gmsm.run_gmsm(meshes, datasets, template, conf, device="cuda",
+                        metrics_path=one_metrics)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (locate.LAUNCHES, locate.LARGEST)
+    peak = torch.cuda.max_memory_allocated()
+    one = _gmsm_summary(res)
+    print(f"gmsm_ranks: one rank: wall {wall:.2f} s, locate_bary launches "
+          f"{launches[0]}, the largest of {launches[1]} queries; peak device "
+          f"memory {peak / 2**30:.3f} GiB")
+    check(launches[0] > 0, "gmsm_ranks: the path never launched the kernel")
+    iters = _print_gmsm_iters("gmsm_ranks one rank", one_metrics)
+    check(all(np.isfinite(e["energy"]) for e in iters),
+          "gmsm_ranks: energies not finite")
+    levels = sorted({e["level"] for e in iters})
+    check(levels == [1, 2, 3], f"gmsm_ranks: levels run: {levels}")
+    chunks = {}
+    for lv in levels:
+        at = [e for e in iters if e["level"] == lv]
+        check(at[-1]["patch_overflow"] == 0, f"gmsm_ranks: level {lv} ended "
+              f"with patch_overflow {at[-1]['patch_overflow']}")
+        chunks[lv] = sorted({e["pair_chunks_by_rank"][0] for e in at})
+    print(f"gmsm_ranks: pair-block batches a table build on one rank, by "
+          f"level: {chunks} (more than one: the chunked branch)")
+    check(max(max(c) for c in chunks.values()) > 1,
+          "gmsm_ranks: the pair blocks never went in more than one batch")
+    folds = [count_folds(m, device="cuda") for m in res.dedrifted_spheres]
+    cc_before = metrics.mean_pairwise_cc([d[0] for d in datasets])
+    print(f"gmsm_ranks: folds of the dedrifted spheres {folds}; mean "
+          f"pairwise sulc CC before {cc_before:.4f} after "
+          f"{res.stats['cc']:.4f}; stats "
+          f"{ {k: round(v, 4) for k, v in res.stats.items()} }")
+    check(sum(folds) == 0, f"gmsm_ranks: dedrifted spheres fold: {folds}")
+    check(res.stats["cc"] > cc_before,
+          "gmsm_ranks: the mean pairwise CC was not raised")
+    by_path = {"gmsm": launches}
+
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2
+                           else [])
+    for backend in backends:
+        tag = f"gmsm_ranks_{backend}"
+        rank_metrics = os.path.join(workdir, f"{tag}_metrics.jsonl")
+        t0 = time.perf_counter()
+        ranks = mh.run_local_ranks(
+            _gmsm_rank, 2, backend=backend, timeout=900,
+            args=(meshes, datasets, template, conf, rank_metrics))
+        print(f"{tag}: 2 ranks on {[r['device'] for r in ranks]}: wall "
+              f"{time.perf_counter() - t0:.2f} s with the spawn, run_gmsm "
+              f"{[round(r['wall'], 2) for r in ranks]} s by rank; "
+              f"locate_bary launches by rank {[r['launches'] for r in ranks]} "
+              f"(largest {[r['largest'] for r in ranks]}); peak device memory "
+              f"by rank {[round(r['peak'] / 2**30, 3) for r in ranks]} GiB")
+        rank_iters = _print_gmsm_iters(tag, rank_metrics)
+        check(all(e["devices"] == 2 for e in rank_iters),
+              f"{tag}: an iter event does not read devices 2")
+        for r, got in enumerate(ranks):
+            same = _same_gmsm(got, one)
+            print(f"{tag}: rank {r} bitwise equal to the one-rank run: "
+                  f"{same}")
+            check(all(same.values()), f"{tag}: rank {r} differs from the "
+                                      f"one-rank run: {same}")
+        total = sum(r["launches"] for r in ranks)
+        check(total == launches[0], f"{tag}: {total} launches over the "
+                                    f"ranks, {launches[0]} on one rank")
+        by_path[tag] = (total, max(r["largest"] for r in ranks))
+    if len(backends) == 1:
+        print("gmsm_ranks_nccl: not run: this machine has "
+              f"{torch.cuda.device_count()} card, and NCCL refuses two ranks "
+              "on one card")
+    print(f"gmsm_ranks: phase wall {time.perf_counter() - t_phase:.2f} s")
+    return by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--warm-runs", type=int, default=0,
@@ -1075,6 +1253,7 @@ def main(argv=None) -> int:
         by_path["group"], group_run = phase_group(torch, workdir,
                                                   args.profile_group)
         by_path.update(phase_group_sharded(torch, workdir, group_run))
+        by_path.update(phase_gmsm_ranks(torch, workdir))
     k, plain, roof = phase_timing(torch, n_queries, MAIN_RES)
     # and at the largest call of the new paths (triclique / anatomical)
     largest = max(n for _, n in by_path.values())

@@ -402,6 +402,7 @@ class GroupFusion:
         blocks = pair_blocks(S).astype(np.int64)
         self.blocks = torch.from_numpy(blocks).to(self.dev)
         self.B = blocks.shape[0]
+        self.pair_chunk_blocks = self.pair_chunks = 0
         self.generator = generator
         self.random_starts = random_starts
         self._starts: dict = {}
@@ -592,6 +593,9 @@ class GroupFusion:
         p4 = torch.zeros((self.B, self.K, 4), dtype=maps.dtype,
                          device=self.dev)
         visiting = maps
+        # batches of `size` blocks this call runs on this rank (read by
+        # the driver's metrics)
+        self.pair_chunk_blocks, self.pair_chunks = size, 0
         for r, rows in enumerate(self.plan):
             if self.maps_exchange == "ring" and r > 0:
                 visiting = self.comm.ring_shift(visiting)
@@ -599,6 +603,7 @@ class GroupFusion:
             else:
                 window = maps
             for s, e in _padded_chunks(rows.shape[0], size):
+                self.pair_chunks += 1
                 chunk = _pad_rows(rows[s:e], size)
                 p4[rows[s:e, 0]] = self.pair_block_cost(
                     state, window, partner, lab_sk, alpha, chunk)[:e - s]

@@ -104,6 +104,7 @@ def shutdown() -> None:
     if _initialized_here and dist.is_initialized():
         dist.destroy_process_group()
     _initialized_here = False
+    _SUB_GROUPS.clear()
 
 
 def rank_device(device="cuda") -> torch.device:
@@ -156,9 +157,26 @@ def process_subject_slice(n_subjects: int, comm=None) -> slice:
     return slice(comm.rank * per, (comm.rank + 1) * per)
 
 
+def share(n_items: int, comm=None) -> range:
+    """This rank's contiguous share of n_items independent jobs: rank r of
+    W takes [r*n/W, (r+1)*n/W), rounded down, so any n works and a share
+    may be empty. For per-item work whose results are all-gathered in item
+    order (the pipelines' per-subject resamples), where no batch spans two
+    items and so the split cannot change a bit. comm None: default_comm()."""
+    comm = comm or default_comm()
+    return range(comm.rank * n_items // comm.world,
+                 (comm.rank + 1) * n_items // comm.world)
+
+
 # --------------------------------------------------------------------------
 # collectives
 # --------------------------------------------------------------------------
+
+# the sub-groups of for_subjects, one per (default group, ranks): every
+# rank calls new_group once for each, so NCCL communicators do not pile up
+# over repeated pipeline runs
+_SUB_GROUPS: dict = {}
+
 
 def default_comm() -> "SubjectComm":
     """The default process group's SubjectComm when the group is up, else
@@ -192,6 +210,56 @@ class SubjectComm:
         parts = [torch.empty_like(t) for _ in range(self.world)]
         dist.all_gather(parts, t, group=self.group)
         return torch.cat(parts)
+
+    def all_gather_arrays(self, arrays) -> list:
+        """Every rank's list of host (numpy) arrays, concatenated in rank
+        order; ranks may hold different numbers, shapes and dtypes. They
+        travel pickled, so each comes back bit for bit."""
+        if self.world == 1:
+            return list(arrays)
+        parts = [None] * self.world
+        dist.all_gather_object(parts, list(arrays), group=self.group)
+        return [a for part in parts for a in part]
+
+    def broadcast_arrays(self, arrays, src: int = 0) -> list:
+        """Rank `src`'s list of host arrays (as in all_gather_arrays), on
+        every rank; the other ranks' `arrays` are ignored."""
+        if self.world == 1:
+            return list(arrays)
+        box = [list(arrays) if self.rank == src else None]
+        dist.broadcast_object_list(
+            box, src=dist.get_global_rank(self.group, src), group=self.group)
+        return box[0]
+
+    def for_subjects(self, n_subjects: int) -> "SubjectComm | None":
+        """The comm of this group's first n ranks, n the largest rank count
+        <= W that divides n_subjects (the JAX package's single-process
+        choice of devices, newmsm_tpu/reg/group.py:297-316); None on the
+        ranks outside it, which wait for the result (broadcast_arrays from
+        rank 0). Only for a pipeline that must register an S it did not
+        choose, such as the 2-subject nodes of cgMSM: where the user
+        chooses W (the CLI under torchrun) process_subject_slice refuses a
+        W that does not divide S. A smaller group comes from
+        dist.new_group, which every rank of the default group must call in
+        the same order, so then this comm must span the default group; it
+        is made once per set of ranks and kept for later calls."""
+        n = min(self.world, n_subjects)
+        while n_subjects % n:
+            n -= 1
+        if n == self.world:
+            return self
+        if n == 1:
+            return SubjectComm() if self.rank == 0 else None
+        if self.world != dist.get_world_size():
+            raise ValueError(
+                f"{n_subjects} subjects need a group of {n} of this comm's "
+                f"{self.world} ranks, and a new group needs every rank of "
+                "the default group: pass a group that spans the world")
+        ranks = tuple(dist.get_global_rank(self.group, r) for r in range(n))
+        key = (dist.group.WORLD, ranks)
+        if key not in _SUB_GROUPS:
+            _SUB_GROUPS[key] = dist.new_group(list(ranks))
+        return SubjectComm(_SUB_GROUPS[key]) if self.rank < n else None
 
     def disjoint_sum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum of tensors whose nonzero slots are disjoint across ranks:

@@ -252,10 +252,12 @@ def run_cohort(clustering: str | Dict[str, List[str]],
                config,
                min_size: int = 10,
                verbose: bool = False,
-               dedrift_warps: bool = True, device=None) -> CohortResult:
+               dedrift_warps: bool = True, device=None,
+               group=None) -> CohortResult:
     """cgMSM straight from the clustering + hierarchy CSVs
     (run_cgMSM_ver_gw_iter.sh orchestrated by extract_info/gen_order):
-    prune the tree, then walk it children-first with pipelines.gmsm.run_cgmsm.
+    prune the tree, then walk it children-first with pipelines.gmsm.run_cgmsm
+    over the ranks of `group` (None: this process alone; see run_cgmsm).
 
     datasets: {subject: (Mesh, (D,N) data)} for every subject that may be in
     the study; unused (small-group) subjects are ignored.
@@ -270,7 +272,7 @@ def run_cohort(clustering: str | Dict[str, List[str]],
         raise ValueError(f"datasets missing study subjects: {missing[:5]}")
     state = run_cgmsm(study.groups, study.tree, datasets, template, config,
                       verbose=verbose, dedrift_warps=dedrift_warps,
-                      device=device)
+                      device=device, group=group)
     return CohortResult(state=state, study=study)
 
 
@@ -306,6 +308,10 @@ def register_dataset(subjects: Sequence[str],
     data: mapping or callable subject -> (D,N) feature array (the reference
     reads $subject.sulc.curv.affine.ico6.shape.gii). `device` None means
     cuda.
+
+    One rank, one subject after another, as in the JAX package: it takes no
+    process group. Splitting the subjects over ranks, as the reference's
+    SLURM array does, would be a feature the JAX package lacks.
     """
     from .. import resolve_device
     from ..reg.driver import MeshRegistration

@@ -140,6 +140,13 @@ class GroupMeshRegistration:
     def _owned_ids(self) -> List[int]:
         return list(range(len(self.meshes))[self.owned])
 
+    def registered_spheres(self) -> List[Mesh]:
+        """Every subject's registered data-grid sphere, on every rank of
+        the comm (sph_reg holds only this rank's own): a collective."""
+        coords = self.comm.all_gather_arrays(
+            [self.sph_reg[s].coords for s in self._owned_ids()])
+        return [Mesh(coords=c, faces=self.sph_orig.faces) for c in coords]
+
     def set_template(self, mesh: Mesh | str):
         m = Mesh.load(mesh) if isinstance(mesh, str) else mesh.copy()
         m.recentre()
@@ -410,9 +417,10 @@ class GroupMeshRegistration:
             t2 = self._clock()
             self.energy_log.append((self.level, it, newenergy))
             changed = float((labeling != 0).float().mean())
-            # every rank's own stage seconds
+            # every rank's own stage seconds and pair-block batches
             secs = self.comm.all_gather(torch.tensor(
-                [[t1 - t0, t2 - t1]], dtype=torch.float64, device=dev))
+                [[t1 - t0, t2 - t1, self._fusion_fn.pair_chunks]],
+                dtype=torch.float64, device=dev))
             if self.verbose and self.comm.rank == 0:
                 print(f"  iter {it}: energy {newenergy:.4f} "
                       f"({changed:.0%} nodes moved)  "
@@ -428,7 +436,11 @@ class GroupMeshRegistration:
                               setup_s_by_rank=[round(float(x), 4)
                                                for x in secs[:, 0]],
                               opt_s_by_rank=[round(float(x), 4)
-                                             for x in secs[:, 1]])
+                                             for x in secs[:, 1]],
+                              pair_chunk_blocks=(
+                                  self._fusion_fn.pair_chunk_blocks),
+                              pair_chunks_by_rank=[int(x)
+                                                   for x in secs[:, 2]])
 
             if it > 1 and (energy - newenergy < newenergy * 0.01):
                 break

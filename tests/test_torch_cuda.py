@@ -3,11 +3,12 @@ locate kernel against its plain PyTorch version on the card (on the
 sphere, off it, and at the size of a triclique call), the MCMC colour
 scatter and the face-patch scatter on the card against the CPU, the
 groupwise path's fusion tables and label maps on the card against the CPU,
-and its subject-sharded fusion call on the card (a 1-rank NCCL group, two
-gloo ranks sharing the card) against the one-device call. They skip
-without one. The machine with the card has no JAX, so this file imports
-neither JAX nor the JAX package, and is run there without tests/conftest.py
-(which imports JAX):
+its subject-sharded fusion call on the card (a 1-rank NCCL group, two
+gloo ranks sharing the card) against the one-device call, and run_cgmsm
+over NCCL ranks, a card each (where there are two or more), against one
+rank. They skip without one. The machine with the card has no JAX, so
+this file imports neither JAX nor the JAX package, and is run there
+without tests/conftest.py (which imports JAX):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
@@ -341,3 +342,81 @@ def test_two_gloo_ranks_sharing_the_card_give_the_one_device_call(cuda,
                                   args=(4, exchange), backend="gloo",
                                   timeout=300):
         _assert_same_fusion(got, want)
+
+
+_GROUPS = {"A": ["s0", "s1"], "B": ["s2"], "C": ["s3"]}
+_TREE = [("A", "B", "AB"), ("AB", "C", "ABC")]
+
+
+def _cgmsm_on_card(tmp, ranked):
+    """run_cgmsm on synth_cohort(3, 4, seed=0) (the parity tool's FAST
+    groupwise config at one iteration a level) on this rank's card, over
+    the default group when `ranked`, else alone; and the host-array
+    collectives of the group."""
+    import os
+
+    import torch.distributed as dist
+    from newmsm_tpu_torch.core.mesh import Mesh
+    from newmsm_tpu_torch.eval.synth import synth_cohort
+    from newmsm_tpu_torch.parallel import multihost as mh
+    from newmsm_tpu_torch.pipelines import gmsm
+    from newmsm_tpu_torch.tools import parity
+    group = dist.group.WORLD if ranked else None
+    comm = mh.SubjectComm(group)
+    if ranked:                 # node registrations write under "./"
+        os.chdir(os.path.join(tmp, f"rank{comm.rank}"))
+    meshes, datasets, _ = synth_cohort(3, 4, seed=0)
+    tmpl = Mesh.from_icosphere(3)
+    tmpl.true_rescale(100.0)
+    subjects = {f"s{i}": (meshes[i], datasets[i]) for i in range(4)}
+    state = gmsm.run_cgmsm(_GROUPS, _TREE, subjects, tmpl,
+                           parity.config("groupwise", fast=True, iters=1),
+                           device=mh.rank_device("cuda"), group=group)
+    mine = [np.full((comm.rank + 1, 3), np.pi), np.arange(comm.rank,
+                                                          dtype=np.int32)]
+    return dict(
+        state={gid: (v["members"], v["mean"],
+                     {s: m.coords for s, m in v["meshes"].items()})
+               for gid, v in state.items()},
+        gathered=comm.all_gather_arrays(mine),
+        bcast=comm.broadcast_arrays(mine, src=comm.world - 1))
+
+
+@pytest.mark.cuda
+def test_cgmsm_over_nccl_ranks_a_card_each_is_the_one_rank_state(
+        cuda, tmp_path, monkeypatch):
+    """min(4, cards) NCCL ranks, a card each (at 3 or more, cgMSM's
+    2-subject nodes run on a 2-rank NCCL sub-group and the others take
+    them by broadcast): every rank's run_cgmsm state is bitwise that of
+    one rank on cuda:0, and the host-array collectives return every
+    rank's arrays bit for bit, dtypes kept."""
+    from newmsm_tpu_torch.parallel import multihost as mh
+    world = min(4, torch.cuda.device_count())
+    if world < 2:
+        pytest.skip("needs two CUDA cards for NCCL ranks")
+    for r in range(world):
+        (tmp_path / f"rank{r}").mkdir()
+    monkeypatch.chdir(tmp_path)
+    want = _cgmsm_on_card(str(tmp_path), False)["state"]
+    outs = mh.run_local_ranks(_cgmsm_on_card, world,
+                              args=(str(tmp_path), True), backend="nccl",
+                              timeout=600)
+    gathered = []
+    for r in range(world):
+        gathered += [np.full((r + 1, 3), np.pi),
+                     np.arange(r, dtype=np.int32)]
+    for r, out in enumerate(outs):
+        assert list(out["state"]) == list(want)
+        for gid, (members, mean, coords) in want.items():
+            got = out["state"][gid]
+            assert got[0] == members
+            np.testing.assert_array_equal(got[1], mean)
+            assert list(got[2]) == list(coords)
+            for s in coords:
+                np.testing.assert_array_equal(got[2][s], coords[s])
+        for got, exp in zip(out["gathered"], gathered, strict=True):
+            assert got.dtype == exp.dtype
+            np.testing.assert_array_equal(got, exp)
+        for got, exp in zip(out["bcast"], gathered[-2:], strict=True):
+            assert got.dtype == exp.dtype
+            np.testing.assert_array_equal(got, exp)

@@ -79,7 +79,8 @@ def test_every_module_and_chip_smoke_import_without_the_jax_package():
     for new in ("parallel.group_fusion", "reg.group", "pipelines.gmsm",
                 "pipelines.cohort", "eval.reports", "tools.resample_tools",
                 "core.sparse", "parallel.multihost",
-                "parallel.pairwise_sharding", "tools.group_bench"):
+                "parallel.pairwise_sharding", "tools.group_bench",
+                "tools.parity"):
         assert "newmsm_tpu_torch." + new in mods, new
     proc = _run("import importlib\n"
                 f"for m in {mods!r}: importlib.import_module(m)\n"
