@@ -30,9 +30,14 @@ no result line:
               longitudinal pair: also checks anat.reg.surf.gii and the
               4-row STRAINS.func.gii. Not the reference's config file
               verbatim, which is not in this repository;
-  7. mcmc     one --dopt=MCMC --regoption=3 run at small depth (CP ico-2/3,
+  7. multimodal  the structure of the HCP multimodal recipe (regoption 3 +
+              triclique, three levels) on an ico-6 multimodal_cohort
+              subject with 10 channels (the multivariate triclique
+              likelihood): every channel's CC to the template raised, peak
+              device memory. Not the reference's config file verbatim;
+  8. mcmc     one --dopt=MCMC --regoption=3 run at small depth (CP ico-2/3,
               1280 draws a level): energies, folds, seconds per sweep;
-  8. group    the groupwise path (gMSM) through the CLI with list files:
+  9. group    the groupwise path (gMSM) through the CLI with list files:
               the gMSM tutorial config (CP 2/3/4, SG 4/5/6, datagrid 4/5/6,
               lambda 0.3, HOCR, regoption 3; --it cut to 2,2,2) on 6 ico-6
               synthetic subjects and an ico-6 template; checks one sphere
@@ -40,17 +45,17 @@ no result line:
               patches were not truncated, the mean pairwise sulc CC and the
               kernel's launches; then pipelines.gmsm.dedrift on those
               spheres and one small run_gmsm call (3 subjects, ico-4);
-  9. group_sharded  the subject-sharded group path on the same inputs and
+ 10. group_sharded  the subject-sharded group path on the same inputs and
               config: the CLI under `torch.distributed.run --standalone
               --nproc_per_node=2 ... --dist-backend gloo` (two ranks sharing
               the card), then the ring maps exchange at two spawned ranks on
               the config's first two levels, then the CLI under NCCL when
               there are two cards; energies, and the CLI's spheres, bitwise
-              those of phase 8; per-rank stage seconds, launches and peak
+              those of phase 9; per-rank stage seconds, launches and peak
               memory;
- 10. gmsm_ranks  pipelines.gmsm.run_gmsm (registration, dedrift, resamples,
+ 11. gmsm_ranks  pipelines.gmsm.run_gmsm (registration, dedrift, resamples,
               group statistics) on 8 ico-6 subjects, the reference's
-              8-subject tier, with phase 8's config: first in this process
+              8-subject tier, with phase 9's config: first in this process
               on one rank, then over 2 ranks spawned by
               multihost.run_local_ranks (gloo, both on the one card; NCCL,
               one card a rank, when there are two cards); energies,
@@ -60,14 +65,14 @@ no result line:
               to the one-rank run's; prints the pair-block batches of each
               level (S = 8 has 28 blocks: the chunked branch), per-rank peak
               memory, setup_s / opt_s of each iteration and the walls;
- 11. timing   the kernel and its plain version at the shape of the main
+ 12. timing   the kernel and its plain version at the shape of the main
               path's largest locate call: windows of back-to-back launches
               between CUDA events (median and spread), the SM clock and
               power sampled under the load, the roofline bound and the
               issue-slot bound from the SASS instruction count.
 
-Phases 4 to 8 and phase 10's one-rank run each set the kernel's launch
-count to 0 before the call and read it after; the ranks of phases 9 and 10
+Phases 4 to 9 and phase 11's one-rank run each set the kernel's launch
+count to 0 before the call and read it after; the ranks of phases 10 and 11
 are fresh processes, whose counts start at 0 and are read from each rank. A path that never launched the kernel,
 on any rank, fails the run, and so does a failing rank.
 The line before the last is a JSON summary of the kernels; the last line
@@ -158,6 +163,16 @@ AMSM_CONFIG = f"""\
 --bulkmod=1.6
 --shearmod=0.4
 """
+
+# The STRUCTURE of the reference's HCP multimodal recipe
+# (HCP_multimodal_alignment MSMAllStrainFinalconf1to1_1to3_2: regoption 3
+# with the triclique data term, three discrete levels): AMSM_CONFIG without
+# --anatgrid and with --regoption=3, so CP 2/3/4, SG 4/5/6, datagrid 4/5/6
+# and the strain parameters of config_standard_MSM_strain, --it=2,2,2. Not
+# the reference's config file verbatim, which is not in this repository.
+MULTIMODAL_CONFIG = AMSM_CONFIG.replace("--anatgrid=4,5,6\n", "").replace(
+    "--regoption=5", "--regoption=3")
+MULTIMODAL_CHANNELS = 10
 
 # a small-depth MCMC run: two discrete levels, 1280 draws a level
 # (10 sweeps of 128 proposals); the reference default is 100000
@@ -624,6 +639,56 @@ def phase_amsm(torch, workdir, warm_runs=0):
           f"{_cc(np.linalg.norm(anat_reg.coords, axis=1), r_in):.4f}; "
           f"STRAINS rows (max stretch, min stretch, Green strains) means "
           f"{[round(float(x), 4) for x in strains.mean(1)]}")
+    return launches
+
+
+def phase_multimodal(torch, workdir):
+    """The HCP multimodal recipe's structure (regoption 3 + triclique, the
+    multivariate likelihood over 10 channels) on one
+    multimodal_cohort(6, 1, n_channels=10) subject against its template."""
+    from newmsm_tpu_torch.core import io as mio
+    from newmsm_tpu_torch.core.mesh import Mesh
+    from newmsm_tpu_torch.eval.synth import multimodal_cohort
+    D = MULTIMODAL_CHANNELS
+    meshes, datasets, template_data = multimodal_cohort(
+        MAIN_RES, 1, n_channels=D, seed=0)
+    template = Mesh.from_icosphere(MAIN_RES)
+    template.true_rescale(100.0)
+    in_data = datasets[0]
+    inputs = write_inputs(workdir, "multimodal", meshes[0], in_data,
+                          template, template_data)
+    print(f"multimodal: ico-{MAIN_RES} subject, {template.nvertices} "
+          f"vertices, {D} channels; the STRUCTURE of the reference's HCP "
+          "multimodal recipe (regoption 3, triclique, CP 2/3/4, SG and data "
+          f"grids 4/5/6, --it={AMSM_ITERS}); NOT the reference's config file "
+          "verbatim, which is not in this repository")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, events, launches, _ = run_path(torch, workdir, "multimodal", inputs,
+                                        MULTIMODAL_CONFIG)
+    peak = torch.cuda.max_memory_allocated()
+    energies = print_stages("multimodal", events)
+    first_setup = {}
+    for e in events:
+        if e["event"] == "iter":
+            first_setup.setdefault(e["level"], e["setup_s"])
+    print("multimodal: first set-up seconds of each level: "
+          + ", ".join(f"level {lv}: {t}" for lv, t in first_setup.items())
+          + f"; peak device memory {peak / 2**30:.3f} GiB")
+    check_registration("multimodal", out, energies, template, in_data,
+                       template_data)
+    transformed = mio.load_data(out + "transformed_and_reprojected.func.gii",
+                                template)
+    before = [_cc(in_data[c], template_data[c]) for c in range(D)]
+    after = [_cc(transformed[c], template_data[c]) for c in range(D)]
+    print(f"multimodal: CC to the template by channel before "
+          f"{[round(c, 4) for c in before]} after "
+          f"{[round(c, 4) for c in after]}; mean {np.mean(before):.4f} -> "
+          f"{np.mean(after):.4f}")
+    check(np.mean(after) > np.mean(before),
+          "multimodal: the mean CC over the channels was not raised")
+    lowered = [c for c in range(D) if after[c] < before[c]]
+    check(not lowered, f"multimodal: channels {lowered} lost CC")
     return launches
 
 
@@ -1249,6 +1314,7 @@ def main(argv=None) -> int:
         by_path["msmpair"] = phase_msmpair(torch, workdir, subject,
                                            args.warm_runs)
         by_path["amsm"] = phase_amsm(torch, workdir, args.warm_runs)
+        by_path["multimodal"] = phase_multimodal(torch, workdir)
         by_path["mcmc"] = phase_mcmc(torch, workdir)
         by_path["group"], group_run = phase_group(torch, workdir,
                                                   args.profile_group)

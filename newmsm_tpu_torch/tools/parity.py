@@ -1,20 +1,30 @@
 """Registration quality of the port against the JAX package's recorded
-rows: the protocol of scripts/parity_harness.py (the reference's
+rows: the protocols of scripts/parity_harness.py (the reference's
 gMSM-vs-typical evaluation, gMSM_scripts/gMSM_tutorial/compare_stats.py)
-run by newmsm_tpu_torch.
+and scripts/group_full_diag.py (the matched-CC protocol) run by
+newmsm_tpu_torch.
 
     python -m newmsm_tpu_torch.tools.parity [--device cuda] [--subjects 6]
-        [--res 6] [--fast] [--it N] [--phases typical,msmpair,groupwise]
-        [--group-ranks W] [--out FILE.json] [--metrics FILE.jsonl]
+        [--res 6] [--fast] [--it N] [--cohort standard|hf]
+        [--phases typical,msmpair,groupwise,lam | hf] [--group-ranks W]
+        [--out FILE.json] [--metrics FILE.jsonl]
 
-On synth_cohort(res, S, seed=0) (sulc + curv):
+On synth_cohort(res, S, seed=0) (--cohort standard, the default; sulc +
+curv), the phases typical, msmpair and groupwise (the default) and lam:
   typical    each subject registered pairwise to the group template with
              config_standard_MSM_strain (TYPICAL_CONFIG);
   msmpair    the same with config_standard_MSMpair (MSMPAIR_CONFIG);
   groupwise  pipelines.gmsm.run_gmsm with the gMSM tutorial config
              (GROUPWISE_CONFIG) and dedrift; with --group-ranks W, over W
              ranks spawned by multihost.run_local_ranks (gloo when ranks
-             share a card or run on the CPU, NCCL with a card a rank).
+             share a card or run on the CPU, NCCL with a card a rank);
+  lam        the groupwise row at lambda 0.5 (row groupwise_lam0.5), a
+             point of the lambda trade-off curve.
+On synth_cohort(res, S, seed=0, idio_band="hf") (--cohort hf: the
+idiosyncratic folds at 12-25 cycles a half-turn, which a warp cannot
+align), the phase hf: rows hf_before, hf_typical (TYPICAL_CONFIG) and
+hf_groupwise_lam{0.3,0.8,1.2} (GROUPWISE_CONFIG at that lambda, each with
+ratio_vs_typical, its areal_mean over hf_typical's, rounded to 3 places).
 Each row: mean pairwise CC and DICE per channel of the resampled maps, the
 |log2| areal / shape distortion means, folds of every output sphere,
 whether every energy was finite, and the wall. --fast takes the harness's
@@ -23,13 +33,17 @@ FAST_* configs. --it sets every level of every config to N iterations.
 setup_s / opt_s, pair-block batches and peak device memory.
 
 It prints each row beside the JAX package's recorded row (parity_full.json,
-or parity_fast.json with --fast, at the repository root; it never writes
-them): |delta cc_sulc| and the areal_mean ratio. The JAX package's msmpair
-row was made with the reference's own config file, which is not in the
-repository, so that row is compared by pattern only. Gates, which make the
-exit code 1: 0 folds in every output sphere, every row's cc_sulc above the
-unregistered cohort's, groupwise cc_sulc >= typical cc_sulc (the protocol's
-published pattern), finite energies.
+or parity_fast.json with --fast, and group_full_diag.json for the hf rows,
+at the repository root; it never writes them): |delta cc_sulc| and the
+areal_mean ratio. The JAX package's msmpair row was made with the
+reference's own config file, which is not in the repository, so that row
+is compared by pattern only; it recorded no row for lam at full width, so
+that row is printed, not compared. Gates, which make the exit code 1: 0
+folds in every output sphere, every row's cc_sulc above the unregistered
+cohort's, groupwise cc_sulc >= typical cc_sulc (the protocol's published
+pattern), finite energies; on the hf rows the gates of
+tests/test_parity_full_nightly.py at lambda 1.2: cc_sulc and cc_curv >=
+hf_typical's, ratio_vs_typical <= 1.75.
 """
 from __future__ import annotations
 
@@ -126,18 +140,36 @@ CONFIGS = {"typical": (TYPICAL_CONFIG, FAST_TYPICAL),
            "msmpair": (MSMPAIR_CONFIG, FAST_MSMPAIR),
            "groupwise": (GROUPWISE_CONFIG, FAST_GROUPWISE)}
 PHASES = tuple(CONFIGS)
+# the phases each cohort admits (run by default: PHASES, and hf)
+COHORT_PHASES = {"standard": PHASES + ("lam",), "hf": ("hf",)}
+LAM = 0.5
+HF_LAMBDAS = (0.3, 0.8, 1.2)
+HF_ROWS = ("hf_typical",) + tuple(f"hf_groupwise_lam{lam}"
+                                  for lam in HF_LAMBDAS)
 # |delta cc_sulc| against the JAX package's row above which the gap is a
-# fault to record (typical and groupwise rows)
+# fault to record (typical and groupwise rows, hf rows)
 CC_BAND = 0.03
+# the matched-CC gate of tests/test_parity_full_nightly.py: groupwise areal
+# distortion at lambda 1.2 over typical's
+HF_RATIO_BOUND = 1.75
 
 
-def config(phase: str, fast: bool = False, iters: int | None = None):
-    """The phase's RegConfig; `iters` sets every level's iterations."""
+def config(phase: str, fast: bool = False, iters: int | None = None,
+           lam: float | None = None):
+    """The phase's RegConfig; `iters` sets every level's iterations, `lam`
+    every level's lambda of the groupwise config."""
     from ..reg.config import parse_config
+    text = CONFIGS[phase][int(fast)]
+    if lam is not None:
+        if phase != "groupwise":
+            raise ValueError(f"lambda is set on the groupwise config, not "
+                             f"{phase!r}")
+        text = text.replace("--lambda=0.3,0.3,0.3",
+                            f"--lambda={lam},{lam},{lam}")
     with tempfile.TemporaryDirectory(prefix="parity_conf_") as d:
         path = os.path.join(d, f"{phase}.conf")
         with open(path, "w") as f:
-            f.write(CONFIGS[phase][int(fast)])
+            f.write(text)
         cfg = parse_config(path)
     if iters is not None:
         cfg.iters = [iters] * len(cfg.iters)
@@ -243,10 +275,11 @@ def run_groupwise(meshes, datasets, template, cfg, device,
     return rows[0]
 
 
-def print_group_metrics(metrics_path: str) -> None:
-    """The groupwise driver's per-iteration and per-rank lines."""
+def print_group_metrics(metrics_path: str, start: int = 0) -> None:
+    """The groupwise driver's per-iteration and per-rank lines, from line
+    `start` of the events file on."""
     with open(metrics_path) as f:
-        events = [json.loads(line) for line in f]
+        events = [json.loads(line) for line in f][start:]
     for e in events:
         if e["event"] == "iter":
             print(f"  level {e['level']} it {e['iter']}: energy "
@@ -264,27 +297,36 @@ def print_group_metrics(metrics_path: str) -> None:
 def gates(out: dict) -> list:
     """The failed gates of a result (empty when every gate holds)."""
     fails = []
-    before = out["before"]["cc_sulc"]
-    for phase in PHASES:
-        row = out.get(phase)
-        if row is None:
+    before = out["hf_before" if "hf_before" in out else "before"]["cc_sulc"]
+    for name, row in out.items():
+        if not isinstance(row, dict) or "folds" not in row:
             continue
         if sum(row["folds"]):
-            fails.append(f"{phase}: folds by subject {row['folds']}")
+            fails.append(f"{name}: folds by subject {row['folds']}")
         if not row["cc_sulc"] > before:
-            fails.append(f"{phase}: cc_sulc {row['cc_sulc']} not above the "
+            fails.append(f"{name}: cc_sulc {row['cc_sulc']} not above the "
                          f"unregistered {before}")
         if not row["energies_finite"]:
-            fails.append(f"{phase}: an energy is not finite")
+            fails.append(f"{name}: an energy is not finite")
     if "typical" in out and "groupwise" in out and \
             out["groupwise"]["cc_sulc"] < out["typical"]["cc_sulc"]:
         fails.append(f"groupwise cc_sulc {out['groupwise']['cc_sulc']} below "
                      f"typical {out['typical']['cc_sulc']}")
+    gw, ty = out.get(HF_ROWS[-1]), out.get("hf_typical")
+    if gw is not None and ty is not None:
+        for key in ("cc_sulc", "cc_curv"):
+            if gw[key] < ty[key]:
+                fails.append(f"{HF_ROWS[-1]} {key} {gw[key]} below "
+                             f"hf_typical {ty[key]}")
+        if not gw["ratio_vs_typical"] <= HF_RATIO_BOUND:
+            fails.append(f"{HF_ROWS[-1]} ratio_vs_typical "
+                         f"{gw['ratio_vs_typical']} above {HF_RATIO_BOUND}")
     return fails
 
 
-def compare(out: dict, ref: dict | None) -> list:
-    """Lines of each row beside the JAX package's recorded row."""
+def compare(out: dict, ref: dict | None,
+            rows: tuple = ("before",) + PHASES) -> list:
+    """Lines of each of `rows` beside the JAX package's recorded row."""
     if ref is None:
         return ["no recorded JAX rows to compare with"]
     lines = []
@@ -296,39 +338,57 @@ def compare(out: dict, ref: dict | None) -> list:
     if out.get("it") is not None:
         lines.append(f"iterations cut to {out['it']} a level: the recorded "
                      "rows ran the configs' full iterations")
-    for phase in ("before",) + PHASES:
-        row, want = out.get(phase), ref.get(phase)
+    for name in rows:
+        row, want = out.get(name), ref.get(name)
         if row is None or want is None:
             continue
         delta = abs(row["cc_sulc"] - want["cc_sulc"])
-        ratio = (row["areal_mean"] / want["areal_mean"]
-                 if want["areal_mean"] else float("nan"))
-        note = ""
-        if phase == "msmpair":
-            note = (" (pattern only: the JAX row ran the reference's own "
-                    "config file, which is not in the repository)")
-        elif phase != "before" and same and out.get("it") is None \
-                and delta > CC_BAND:
-            note = f" OUTSIDE the {CC_BAND} band: a fault to record"
-        lines.append(
-            f"{phase}: cc_sulc port {row['cc_sulc']:.4f} JAX "
-            f"{want['cc_sulc']:.4f} |delta| {delta:.4f}; areal_mean port "
-            f"{row['areal_mean']:.4f} JAX {want['areal_mean']:.4f} ratio "
-            f"{ratio:.3f}{note}")
+        line = (f"{name}: cc_sulc port {row['cc_sulc']:.4f} JAX "
+                f"{want['cc_sulc']:.4f} |delta| {delta:.4f}")
+        if "areal_mean" in want:
+            ratio = (row["areal_mean"] / want["areal_mean"]
+                     if want["areal_mean"] else float("nan"))
+            line += (f"; areal_mean port {row['areal_mean']:.4f} JAX "
+                     f"{want['areal_mean']:.4f} ratio {ratio:.3f}")
+        if "ratio_vs_typical" in want:
+            line += (f"; ratio_vs_typical port {row['ratio_vs_typical']} JAX "
+                     f"{want['ratio_vs_typical']}")
+        if name == "msmpair":
+            line += (" (pattern only: the JAX row ran the reference's own "
+                     "config file, which is not in the repository)")
+        elif not name.endswith("before") and same \
+                and out.get("it") is None and delta > CC_BAND:
+            line += f" OUTSIDE the {CC_BAND} band: a fault to record"
+        lines.append(line)
     return lines
+
+
+def _load(name: str) -> dict | None:
+    path = os.path.join(ROOT, name)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
 
 
 def report(out: dict) -> int:
     """Print the comparison with the JAX package's recorded rows
-    (parity_fast.json for a --fast result, else parity_full.json, at the
-    repository root) and the gates; the exit code."""
-    ref = None
-    reference = os.path.join(ROOT, "parity_fast.json" if out["fast"]
-                             else "parity_full.json")
-    if os.path.exists(reference):
-        with open(reference) as f:
-            ref = json.load(f)
-    for line in compare(out, ref):
+    (parity_fast.json for a --fast result, else parity_full.json, and
+    group_full_diag.json for the hf rows, at the repository root) and the
+    gates; the exit code."""
+    lines = []
+    if "before" in out:
+        lines += compare(out, _load("parity_fast.json" if out["fast"]
+                                    else "parity_full.json"))
+    if "hf_before" in out:
+        lines += compare(out, _load("group_full_diag.json"),
+                         ("hf_before",) + HF_ROWS)
+    lam = out.get(f"groupwise_lam{LAM}")
+    if lam is not None:
+        lines.append(f"groupwise_lam{LAM}: cc_sulc {lam['cc_sulc']:.4f}, "
+                     f"areal_mean {lam['areal_mean']:.4f}: printed, not "
+                     "compared (the JAX package recorded no row for it)")
+    for line in lines:
         print(line)
     fails = gates(out)
     for fail in fails:
@@ -346,7 +406,11 @@ def main(argv=None) -> int:
                     help="the harness's FAST_* configs")
     ap.add_argument("--it", type=int, default=None,
                     help="iterations of every level of every config")
-    ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--cohort", choices=tuple(COHORT_PHASES),
+                    default="standard")
+    ap.add_argument("--phases", default=None,
+                    help="default: typical,msmpair,groupwise (standard), "
+                         "hf (hf)")
     ap.add_argument("--group-ranks", type=int, default=1)
     ap.add_argument("--out", default=None, help="write the rows as JSON")
     ap.add_argument("--metrics", default=None,
@@ -356,10 +420,13 @@ def main(argv=None) -> int:
     from .. import resolve_device
     from ..core.mesh import Mesh
     from ..eval.synth import synth_cohort
-    phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(PHASES)
+    hf = args.cohort == "hf"
+    default = "hf" if hf else ",".join(PHASES)
+    phases = [p for p in (args.phases or default).split(",") if p]
+    unknown = set(phases) - set(COHORT_PHASES[args.cohort])
     if unknown:
-        ap.error(f"unknown phases {sorted(unknown)}")
+        ap.error(f"phases {sorted(unknown)} do not run on the "
+                 f"{args.cohort} cohort")
     device = resolve_device(args.device)
     if device.type == "cuda":
         import subprocess
@@ -371,33 +438,69 @@ def main(argv=None) -> int:
               f"{smi.stdout.strip()}", flush=True)
     if args.metrics:
         open(args.metrics, "w").close()      # the driver appends
-    meshes, datasets, template_data = synth_cohort(args.res, args.subjects,
-                                                   seed=0)
+    band = "hf" if hf else "smooth"
+    meshes, datasets, template_data = synth_cohort(
+        args.res, args.subjects, seed=0, idio_band=band)
     template = Mesh.from_icosphere(args.res)
     template.true_rescale(100.0)
-    print(f"cohort: synth_cohort({args.res}, {args.subjects}, seed=0); "
-          f"phases {phases}; {'FAST_* configs' if args.fast else 'configs'}"
-          f"; iterations {args.it or 'as configured'}", flush=True)
+    print(f"cohort: synth_cohort({args.res}, {args.subjects}, seed=0, "
+          f"idio_band={band!r}); phases {phases}; "
+          f"{'FAST_* configs' if args.fast else 'configs'}; iterations "
+          f"{args.it or 'as configured'}", flush=True)
     before = channel_stats(datasets)
     before.update(areal_mean=0.0, areal_max=0.0, areal_95=0.0, areal_98=0.0,
                   shape_mean=0.0, shape_max=0.0)      # identity warp
     out = {"fast": args.fast, "S": args.subjects, "res": args.res,
-           "it": args.it, "device": str(device), "before": before}
-    for phase in phases:
-        cfg = config(phase, args.fast, args.it)
-        print(f"{phase}:", flush=True)
+           "it": args.it, "device": str(device),
+           ("hf_before" if hf else "before"): before}
+
+    def groupwise(cfg):
+        start = 0
+        if args.metrics:
+            with open(args.metrics) as f:
+                start = sum(1 for _ in f)
+        row = run_groupwise(meshes, datasets, template, cfg, device,
+                            args.group_ranks, args.metrics)
+        row["ranks"] = args.group_ranks
+        if args.metrics:
+            print_group_metrics(args.metrics, start)
+        return row
+
+    def run_row(name, fn, cfg):
+        print(f"{name}:", flush=True)
         t0 = time.perf_counter()
-        if phase == "groupwise":
-            row = run_groupwise(meshes, datasets, template, cfg, device,
-                                args.group_ranks, args.metrics)
-            row["ranks"] = args.group_ranks
-            if args.metrics:
-                print_group_metrics(args.metrics)
-        else:
-            row = run_pairwise(meshes, datasets, template_data, cfg, device)
+        row = fn(cfg)
         row["wall_s"] = time.perf_counter() - t0
-        out[phase] = row
-        print(f"{phase}: {json.dumps(row)}", flush=True)
+        out[name] = row
+        print(f"{name}: {json.dumps(row)}", flush=True)
+        if args.out:                   # kept row by row: a cut run keeps
+            with open(args.out, "w") as f:      # what it finished
+                json.dump(out, f, indent=1)
+        return row
+
+    def pairwise(cfg):
+        return run_pairwise(meshes, datasets, template_data, cfg, device)
+
+    for phase in phases:
+        if phase == "hf":
+            ty = run_row("hf_typical", pairwise,
+                         config("typical", args.fast, args.it))
+
+            def matched(cfg):
+                row = groupwise(cfg)
+                row["ratio_vs_typical"] = round(
+                    row["areal_mean"] / max(ty["areal_mean"], 1e-9), 3)
+                return row
+
+            for lam, name in zip(HF_LAMBDAS, HF_ROWS[1:]):
+                run_row(name, matched, config("groupwise", args.fast,
+                                              args.it, lam))
+        elif phase == "lam":
+            run_row(f"groupwise_lam{LAM}", groupwise,
+                    config("groupwise", args.fast, args.it, LAM))
+        else:
+            run_row(phase, groupwise if phase == "groupwise" else pairwise,
+                    config(phase, args.fast, args.it))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)

@@ -80,7 +80,7 @@ def test_every_module_and_chip_smoke_import_without_the_jax_package():
                 "pipelines.cohort", "eval.reports", "tools.resample_tools",
                 "core.sparse", "parallel.multihost",
                 "parallel.pairwise_sharding", "tools.group_bench",
-                "tools.parity"):
+                "tools.parity", "tools.flagship"):
         assert "newmsm_tpu_torch." + new in mods, new
     proc = _run("import importlib\n"
                 f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -106,6 +106,20 @@ def test_group_bench_writes_the_smoke_cohort_and_config(tmp_path):
                 "'--data')]\n"
                 "assert all(len(open(p).read().split()) == 2 for p in lists)\n"
                 "assert args[-2:] == ['--device', 'cuda']\n")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_flagship_configs_are_the_smoke_recipes():
+    """tools.flagship runs chip_smoke.py's aMSM and multimodal config texts
+    at 10 iterations a level (the smoke cuts them to 2)."""
+    proc = _run("import chip_smoke\n"
+                "from newmsm_tpu_torch.tools import flagship as fl\n"
+                "it = chip_smoke.AMSM_ITERS\n"
+                "assert fl.AMSM_CONFIG.format(iters=it) == "
+                "chip_smoke.AMSM_CONFIG\n"
+                "assert fl.MULTIMODAL_CONFIG.format(iters=it) == "
+                "chip_smoke.MULTIMODAL_CONFIG\n"
+                "assert fl.FULL_ITERS == '10,10,10'\n")
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

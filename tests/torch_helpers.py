@@ -128,6 +128,24 @@ VARIANT_CONFIGS = {
 --regoption=5
 --triclique
 """,
+    # the HCP multimodal recipe's structure at ico-3: regoption 3 with the
+    # multivariate triclique likelihood over every channel, two levels
+    "multimodal": """\
+--opt=DISCRETE,DISCRETE
+--simval=2,2
+--it=2,2
+--sigma_in=2,1
+--sigma_ref=2,1
+--lambda=0.2,0.2
+--datagrid=3,3
+--CPgrid=1,2
+--SGgrid=3,4
+--dopt=HOCR
+--regoption=3
+--triclique
+--VN
+--cprange=1.1
+""",
 }
 
 
@@ -135,16 +153,19 @@ def run_variant_pair(tmp_path, which, cc_tol):
     """One whole-driver variant through the JAX package's CLI and the
     port's CLI (--device cpu) on the same GIFTI files: a synth_cohort(3)
     subject against its template, longitudinal_pair(3) with its anatomies
-    for "amsm", or the 10-degree rotated pair of fixtures.make_pair for
-    "mcmc" and "triclique". Asserts for both: outputs written, 0 folds,
-    finite energies, sulc CC above the before-CC, `chosen_gated == 0` in
-    every fold_gate event; and |CC_port - CC_jax| <= cc_tol. Returns the
-    numbers."""
+    for "amsm", the 10-degree rotated pair of fixtures.make_pair for
+    "mcmc" and "triclique", or a multimodal_cohort(3, 1, n_channels=6)
+    subject against its template for "multimodal". Asserts for both:
+    outputs written, 0 folds, finite energies, sulc CC above the before-CC
+    (multimodal: every channel's CC), `chosen_gated == 0` in every fold_gate
+    event; and |CC_port - CC_jax| <= cc_tol (multimodal: of the mean CC over
+    the channels). Returns the numbers."""
     import json
     from newmsm_tpu import cli as jcli
     from newmsm_tpu.core import io as mio
     from newmsm_tpu.core.mesh import Mesh
-    from newmsm_tpu.eval.synth import longitudinal_pair, synth_cohort
+    from newmsm_tpu.eval.synth import (longitudinal_pair, multimodal_cohort,
+                                       synth_cohort)
     from newmsm_tpu.ops.unfold import count_folds as jfolds
     from newmsm_tpu_torch import cli as tcli
     from newmsm_tpu_torch.core.mesh import Mesh as TMesh
@@ -157,6 +178,12 @@ def run_variant_pair(tmp_path, which, cc_tol):
             longitudinal_pair(3, seed=0)
         in_anat.save(str(d / "in.anat.surf.gii"))
         ref_anat.save(str(d / "ref.anat.surf.gii"))
+    elif which == "multimodal":
+        meshes, datasets, ref_data = multimodal_cohort(3, 1, n_channels=6,
+                                                       seed=0)
+        in_mesh, in_data = meshes[0], datasets[0]
+        ref_mesh = Mesh.from_icosphere(3)
+        ref_mesh.true_rescale(100.0)
     elif which in ("mcmc", "triclique"):
         from fixtures import make_pair
         in_mesh, in_data, ref_mesh, ref_data = make_pair(
@@ -177,7 +204,15 @@ def run_variant_pair(tmp_path, which, cc_tol):
     if anat:
         args += ["--inanat", str(d / "in.anat.surf.gii"), "--refanat",
                  str(d / "ref.anat.surf.gii")]
-    cc_before = float(np.corrcoef(in_data[0], ref_data[0])[0, 1])
+    def ccs(data):
+        """CC to the reference of every channel (only sulc unless
+        multimodal)."""
+        n = data.shape[0] if which == "multimodal" else 1
+        return np.array([np.corrcoef(data[c], ref_data[c])[0, 1]
+                         for c in range(n)])
+
+    before = ccs(in_data)
+    cc_before = float(before.mean())
     out = {"cc_before": cc_before, "profile": str(d / "profile")}
     runs = (("jax", jcli.main, (), lambda p: jfolds(Mesh.load(p))),
             ("torch", tcli.main, ("--device", "cpu", "--profile",
@@ -198,9 +233,10 @@ def run_variant_pair(tmp_path, which, cc_tol):
         data = mio.load_data(prefix + "transformed_and_reprojected.func.gii",
                              ref_mesh)
         assert data.shape == ref_data.shape and np.isfinite(data).all()
-        out[name] = float(np.corrcoef(data[0], ref_data[0])[0, 1])
+        after = ccs(data)
+        out[name] = float(after.mean())
         out[name + "_energies"] = energies
-        assert out[name] > cc_before, (name, out)
+        assert (after > before).all(), (name, before, after)
         if anat:
             assert Mesh.load(prefix + "anat.reg.surf.gii").coords.shape == \
                 in_mesh.coords.shape, name
