@@ -30,7 +30,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-from . import resolve_device
+import torch
+
+from . import resolve_device, trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -65,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["GIFTI", "VTK", "ASCII", "ASCII_MAT"])
     p.add_argument("-c", "--conf", default="", help="configuration file")
     p.add_argument("--metrics", default="",
-                   help="write per-iteration JSONL metrics to this file")
+                   help="write the run's JSONL events and spans to this "
+                        "file (tracing on)")
     p.add_argument("--profile", default="",
                    help="write a torch.profiler trace (Chrome trace JSON, "
                         "trace.json) to this directory")
@@ -131,31 +134,43 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
 
-    from .reg.driver import MeshRegistration
-    mr = MeshRegistration(device=args.device)
-    if args.verbose:
-        print(f"This is newmsm_tpu_torch on {mr.device}.")
-    mr.verbose = args.verbose
-    mr.metrics_path = args.metrics or None
-    mr.profile_dir = args.profile or None
-    mr.debug = args.debug
-    mr.outdir = args.out
-    mr.set_input(args.inmesh)
-    mr.set_reference(args.refmesh if args.refmesh else args.inmesh)
-    if args.indata:
-        mr.set_input_data(args.indata)
-    if args.refdata:
-        mr.set_reference_data(args.refdata)
-    if args.inanat:
-        mr.set_anatomical(args.inanat, args.refanat)
-    mr.set_output_format(args.format)
-    if args.trans:
-        mr.set_transformed(args.trans)
-    if args.inweight:
-        mr.set_input_cfweighting(args.inweight)
-    if args.refweight:
-        mr.set_reference_cfweighting(args.refweight)
-    mr.run_multiresolutions(args.conf or None)
+    # --metrics: the tracer opens here, so that start-up is a span of the
+    # run (cli.start: imports, the CUDA context, K1's library, inputs)
+    device = resolve_device(args.device)
+    with trace.run(args.metrics or None, device):
+        with trace.span("cli.start"):
+            from .reg.driver import MeshRegistration
+            if device.type == "cuda":
+                from .ops import locate
+                with trace.mark("cuda.init"):
+                    torch.cuda.synchronize(device)
+                locate.kernel_tables(device)
+            mr = MeshRegistration(device=device)
+            if args.verbose:
+                print(f"This is newmsm_tpu_torch on {mr.device}.")
+            mr.verbose = args.verbose
+            mr.metrics_path = args.metrics or None
+            mr.profile_dir = args.profile or None
+            mr.debug = args.debug
+            mr.outdir = args.out
+            with trace.mark("cli.inputs"):
+                mr.set_input(args.inmesh)
+                mr.set_reference(args.refmesh if args.refmesh
+                                 else args.inmesh)
+                if args.indata:
+                    mr.set_input_data(args.indata)
+                if args.refdata:
+                    mr.set_reference_data(args.refdata)
+                if args.inanat:
+                    mr.set_anatomical(args.inanat, args.refanat)
+                mr.set_output_format(args.format)
+                if args.trans:
+                    mr.set_transformed(args.trans)
+                if args.inweight:
+                    mr.set_input_cfweighting(args.inweight)
+                if args.refweight:
+                    mr.set_reference_cfweighting(args.refweight)
+        mr.run_multiresolutions(args.conf or None)
     return 0
 
 

@@ -14,10 +14,11 @@ All geometry here is float64 numpy; device code converts as needed.
 """
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from .. import trace
 
 # vertex counts per resolution level (reference mesh.cpp:810-830)
 _RES_TO_NVERT = {0: 12, 1: 42, 2: 162, 3: 642, 4: 2562, 5: 10242, 6: 40962, 7: 163842}
@@ -175,7 +176,7 @@ class Icosphere:
         return int(idx[0])
 
 
-@functools.lru_cache(maxsize=None)
+@trace.cached()
 def icosphere(resolution: int) -> Icosphere:
     """Icosphere at the given subdivision level, reference-ordered, cached."""
     coords, faces = _base_icosahedron()

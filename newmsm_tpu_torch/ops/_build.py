@@ -19,6 +19,8 @@ import re
 import shutil
 import subprocess
 
+from .. import trace
+
 PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "newmsm_tpu_torch"
@@ -85,8 +87,9 @@ def build(source, flags=NVCC_FLAGS) -> pathlib.Path:
 
 def load(source, flags=NVCC_FLAGS) -> ctypes.CDLL:
     """Build (if needed) and load a kernel source; returns the ctypes
-    library."""
-    return ctypes.CDLL(str(build(source, flags)))
+    library. Under tracing, a `k1.load` mark."""
+    with trace.mark("k1.load"):
+        return ctypes.CDLL(str(build(source, flags)))
 
 
 def compiler_log(source, flags=NVCC_FLAGS) -> str:

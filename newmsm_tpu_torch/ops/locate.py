@@ -10,11 +10,11 @@ the two runs as a phase of chip_smoke.py, which fails on a mismatch.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
+from .. import trace
 from . import nearest as _nst
 
 SOURCE = "locate_bary.cu"
@@ -44,7 +44,7 @@ def bind(lib: ctypes.CDLL):
     return fn
 
 
-@functools.lru_cache(maxsize=None)
+@trace.cached()
 def _library() -> ctypes.CDLL:
     from ._build import load
     lib = load(SOURCE)
@@ -67,7 +67,7 @@ def set_constant_tables(lib: ctypes.CDLL, device) -> None:
                            f"CUDA error {rc}")
 
 
-@functools.lru_cache(maxsize=None)
+@trace.cached()
 def kernel_tables(device: torch.device) -> torch.Tensor:
     """Base corners then inward normals, (20,3,3) each, as one flat f32
     device tensor (the kernel's `tables` argument, read per thread for the

@@ -17,13 +17,12 @@ versions of the JAX package's functions (no compiled host extension).
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
 from scipy import sparse
 
-from .. import resolve_device
+from .. import resolve_device, trace
 from ..core import spherical as sph
 from ..core.icosphere import (_NVERT_TO_RES, build_adjacency, icosphere,
                               padded_rows)
@@ -46,7 +45,7 @@ class SearchTables:
 # host tables (numpy / scipy.sparse)
 # --------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
+@trace.cached()
 def _icosphere_ring_faces(resolution: int) -> np.ndarray:
     ico = icosphere(resolution)
     return _build_ring_faces(ico.nbr_idx, ico.tri_idx)
@@ -98,7 +97,7 @@ _DESCENT_BASE_RES = 2      # dense stage over the first 162 vertices
 _DESCENT_DEPTH = 3         # BFS ring depth of each refinement candidate set
 
 
-@functools.lru_cache(maxsize=None)
+@trace.cached()
 def _descent_table(level: int) -> np.ndarray:
     """(n_{level-1}, Cd) candidates for refining a nearest-vertex result from
     icosphere level-1 to `level`: fine vertices within `_DESCENT_DEPTH`
@@ -107,7 +106,7 @@ def _descent_table(level: int) -> np.ndarray:
                      _DESCENT_DEPTH)
 
 
-@functools.lru_cache(maxsize=1)
+@trace.cached(maxsize=1)
 def _base_face_tables():
     """Base-face corner coords (20,3,3) in face vertex order, and inward
     edge normals (20,3,3): unit u lies in base face f iff all three
@@ -125,7 +124,7 @@ def _base_face_tables():
             np.ascontiguousarray(nrm, np.float32))
 
 
-@functools.lru_cache(maxsize=None)
+@trace.cached()
 def _base_tables_on(device: torch.device):
     bc, bn = _base_face_tables()
     return (torch.from_numpy(bc).to(device), torch.from_numpy(bn).to(device))
@@ -291,7 +290,7 @@ def _max_edge_stretch(coords: np.ndarray, faces: np.ndarray,
     return float(max(r.max(), (1.0 / np.maximum(r, 1e-30)).max()))
 
 
-@functools.lru_cache(maxsize=None)
+@trace.cached()
 def _icosphere_tables_on(res: int, device: torch.device, with_descent: bool):
     """Topology tensors of the level-`res` icosphere on `device` (cached:
     every warp step rebuilds SearchTables for the same topology)."""

@@ -15,12 +15,11 @@ it for numpy meshes.
 """
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
 
-from .. import RAD, resolve_device
+from .. import RAD, resolve_device, trace
 from ..core import spherical as sph
 from ..core.mesh import Mesh
 from ..reg.optimise.coloring import color_groups, vertex_coloring_from_faces
@@ -101,7 +100,7 @@ def _sweep(coords, faces, tri_idx, fv, color_masks, nbr_idx, steps):
     return coords
 
 
-@functools.lru_cache(maxsize=None)
+@trace.cached()
 def _vertex_groups_np(faces_key: bytes, nverts: int, nfaces: int):
     faces = np.frombuffer(faces_key, dtype=np.int32).reshape(nfaces, 3)
     return color_groups(vertex_coloring_from_faces(faces, nverts))

@@ -46,7 +46,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import FIX_NAN, FOLDING, RAD, resolve_device
+from .. import FIX_NAN, FOLDING, RAD, resolve_device, trace
 from ..core import spherical as sph
 from ..ops import similarity as simi
 from ..ops.nearest import SearchTables, _search
@@ -200,8 +200,17 @@ def build_iteration_tables(partner: np.ndarray, cp_faces: np.ndarray,
     key = (S, K, cp_faces.shape[0], str(dev), hash(partner.tobytes()))
     hit = _ITER_TABLE_CACHE.get(key)
     if hit is not None:
+        trace.table_hit()
         return hit
+    with trace.table_miss():
+        out = _iteration_tables(partner, cp_faces, S, K, dev)
+    if len(_ITER_TABLE_CACHE) >= _ITER_TABLE_CACHE_MAX:
+        _ITER_TABLE_CACHE.pop(next(iter(_ITER_TABLE_CACHE)))
+    _ITER_TABLE_CACHE[key] = out
+    return out
 
+
+def _iteration_tables(partner, cp_faces, S: int, K: int, dev):
     blocks = pair_blocks(S)
     B = blocks.shape[0]
     N = S * K
@@ -237,16 +246,12 @@ def build_iteration_tables(partner: np.ndarray, cp_faces: np.ndarray,
     def put(a):
         return torch.from_numpy(a.astype(np.int64)).to(dev)
 
-    out = GroupIterTables(
+    return GroupIterTables(
         groups=tuple(put(np.nonzero(colors == c)[0])
                      for c in range(int(colors.max()) + 1)),
         vert_tri=put(vert_tri), vert_tri_corner=put(vert_tri_corner),
         vert_pair=put(vert_pair), vert_pair_end=put(vert_pair_end),
         colors=colors)
-    if len(_ITER_TABLE_CACHE) >= _ITER_TABLE_CACHE_MAX:
-        _ITER_TABLE_CACHE.pop(next(iter(_ITER_TABLE_CACHE)))
-    _ITER_TABLE_CACHE[key] = out
-    return out
 
 
 # --------------------------------------------------------------------------
@@ -683,8 +688,9 @@ class GroupFusion:
             maps = self.comm.all_gather(maps)
         pair_nodes = self.pair_endpoints(partner)
         for i in range(self.st.sweeps * self.L):
-            labeling = self.alpha_step(state, maps, partner, tables,
-                                       pair_nodes, labeling, i % self.L)
+            with trace.mark("group.alpha"):
+                labeling = self.alpha_step(state, maps, partner, tables,
+                                           pair_nodes, labeling, i % self.L)
         return (labeling, self.energy(state, maps, partner, labeling),
                 state["patch_need"])
 

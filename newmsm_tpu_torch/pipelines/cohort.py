@@ -31,6 +31,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import trace
 from ..core.mesh import Mesh
 from ..eval import metrics
 
@@ -327,30 +328,41 @@ def register_dataset(subjects: Sequence[str],
     for subject in subjects:
         try:
             mr = MeshRegistration(device=device)
-            mr.set_input(mesh.copy())
-            mr.set_reference(mesh.copy())
-            mr.set_input_data(np.atleast_2d(np.asarray(get(subject))))
-            mr.set_reference_data(tdata)
-            mr.verbose = verbose
-            # per-subject prefix even without outdir: the driver otherwise
-            # writes its default './' outputs and each subject would
-            # silently overwrite the previous one's sphere.reg/transformed
-            mr.outdir = os.path.join(outdir or ".", f"{subject}.MSM.")
-            mr.run_multiresolutions(config)
+            # the driver's metrics (if its metrics_path is set) take in the
+            # post-processing too, as one unit
+            with trace.run(mr.metrics_path, mr.device):
+                mr.set_input(mesh.copy())
+                mr.set_reference(mesh.copy())
+                mr.set_input_data(np.atleast_2d(np.asarray(get(subject))))
+                mr.set_reference_data(tdata)
+                mr.verbose = verbose
+                # per-subject prefix even without outdir: the driver
+                # otherwise writes its default './' outputs and each subject
+                # would silently overwrite the previous one's
+                # sphere.reg/transformed
+                mr.outdir = os.path.join(outdir or ".", f"{subject}.MSM.")
+                mr.run_multiresolutions(config)
 
-            # driver already wrote sphere.reg/transformed per subject
-            areal, shape = metrics.distortion_maps(mr.in_mesh, mr.warped_input)
-            stats = metrics.distortion_stats(areal, shape)
-            # CC over ALL feature channels (flattened (D,N)), not just ch 0
-            stats["cc"] = metrics.cross_correlation(
-                np.asarray(mr.transformed_data).ravel(), tdata.ravel())
-            result.per_subject[subject] = stats
-            if outdir and save_distortion:
-                # wb_command -surface-distortion -local-affine-method -log2
-                dist = Mesh(coords=mr.in_mesh.coords, faces=mr.in_mesh.faces,
-                            data=np.stack([areal, shape]))
-                dist.save(os.path.join(
-                    outdir, f"{subject}.MSM.sphere.distortion.func.gii"))
+                # driver already wrote sphere.reg/transformed per subject
+                with trace.span("subject.post"):
+                    areal, shape = metrics.distortion_maps(mr.in_mesh,
+                                                           mr.warped_input)
+                    stats = metrics.distortion_stats(areal, shape)
+                    # CC over ALL feature channels (flattened (D,N)), not
+                    # just ch 0
+                    stats["cc"] = metrics.cross_correlation(
+                        np.asarray(mr.transformed_data).ravel(),
+                        tdata.ravel())
+                    result.per_subject[subject] = stats
+                    if outdir and save_distortion:
+                        # wb_command -surface-distortion
+                        # -local-affine-method -log2
+                        dist = Mesh(coords=mr.in_mesh.coords,
+                                    faces=mr.in_mesh.faces,
+                                    data=np.stack([areal, shape]))
+                        dist.save(os.path.join(
+                            outdir,
+                            f"{subject}.MSM.sphere.distortion.func.gii"))
         except Exception as e:       # isolate failures like SLURM array tasks
             result.failed[subject] = str(e)
             if verbose:

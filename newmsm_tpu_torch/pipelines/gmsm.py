@@ -17,7 +17,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .. import RAD, resolve_device
+from .. import RAD, resolve_device, trace
 from ..core.mesh import Mesh
 from ..ops import resample as rsp
 from ..ops.unfold import unfold
@@ -115,55 +115,65 @@ def run_gmsm(meshes: List[Mesh], datasets: List[np.ndarray], template: Mesh,
     else:
         outdir_run = outdir
     gmr.outdir = outdir_run
-    try:
-        gmr.run_multiresolutions(config)
-    finally:
-        if tmp_ctx is not None:
-            tmp_ctx.cleanup()
+    # rank 0 writes the metrics; the registration's and the
+    # post-processing's spans are one unit
+    with trace.run(metrics_path if comm.rank == 0 else None, device,
+                   on=bool(metrics_path)):
+        try:
+            gmr.run_multiresolutions(config)
+        finally:
+            if tmp_ctx is not None:
+                tmp_ctx.cleanup()
 
-    S = len(meshes)
-    original = gmr.sph_orig
-    warped = gmr.registered_spheres()
-    # lift the data-grid warps onto the subjects' native spheres
-    native_warped = [_like(meshes[s], c) for s, (c,) in enumerate(_spread(
-        comm, S, lambda s: (rsp.sphere_project_warp(
-            meshes[s], original, warped[s], device).coords,)))]
-    if dedrift_warps:
-        native_warped = dedrift(native_warped, meshes[0], device, group)
+        S = len(meshes)
+        original = gmr.sph_orig
+        # lift the data-grid warps onto the subjects' native spheres
+        with trace.span("gmsm.lift"):
+            warped = gmr.registered_spheres()
+            native_warped = [_like(meshes[s], c) for s, (c,) in enumerate(
+                _spread(comm, S, lambda s: (rsp.sphere_project_warp(
+                    meshes[s], original, warped[s], device).coords,)))]
+        if dedrift_warps:
+            with trace.span("gmsm.dedrift"):
+                native_warped = dedrift(native_warped, meshes[0], device,
+                                        group)
 
-    def resample(s):
-        m = native_warped[s]
-        carrier = Mesh(coords=m.coords, faces=m.faces,
-                       data=np.atleast_2d(datasets[s]))
-        res, _ = rsp.metric_resample(carrier, template, device=device)
-        return (res.data,)
-    resampled = [r for (r,) in _spread(comm, S, resample)]
+        def resample(s):
+            m = native_warped[s]
+            carrier = Mesh(coords=m.coords, faces=m.faces,
+                           data=np.atleast_2d(datasets[s]))
+            res, _ = rsp.metric_resample(carrier, template, device=device)
+            return (res.data,)
+        with trace.span("gmsm.resample"):
+            resampled = [r for (r,) in _spread(comm, S, resample)]
 
-    stack = np.stack(resampled)                      # (S,D,Nt)
-    mean_map = stack.mean(axis=0)
-    stdev_map = stack.std(axis=0)
+        with trace.span("gmsm.stats"):
+            stack = np.stack(resampled)                      # (S,D,Nt)
+            mean_map = stack.mean(axis=0)
+            stdev_map = stack.std(axis=0)
 
-    stats = {
-        "cc": metrics.mean_pairwise_cc([r[0] for r in resampled]),
-        "dice": metrics.mean_pairwise_dice([r[0] for r in resampled]),
-    }
-    per_subj = []
-    for s, m in enumerate(native_warped):
-        areal, shape = metrics.distortion_maps(meshes[s], m)
-        per_subj.append(metrics.distortion_stats(areal, shape))
-    for key in per_subj[0]:
-        stats[key] = float(np.mean([d[key] for d in per_subj]))
+            stats = {
+                "cc": metrics.mean_pairwise_cc([r[0] for r in resampled]),
+                "dice": metrics.mean_pairwise_dice(
+                    [r[0] for r in resampled]),
+            }
+            per_subj = []
+            for s, m in enumerate(native_warped):
+                areal, shape = metrics.distortion_maps(meshes[s], m)
+                per_subj.append(metrics.distortion_stats(areal, shape))
+            for key in per_subj[0]:
+                stats[key] = float(np.mean([d[key] for d in per_subj]))
 
-    if outdir and comm.rank == 0:
-        d = os.path.dirname(outdir)
-        if d:
-            os.makedirs(d, exist_ok=True)
-        for s, m in enumerate(native_warped):
-            m.save(outdir + f"sphere-{s}.dedrift.reg.surf.gii")
-        Mesh(coords=template.coords, faces=template.faces,
-             data=mean_map).save(outdir + "mean.func.gii")
-        Mesh(coords=template.coords, faces=template.faces,
-             data=stdev_map).save(outdir + "stdev.func.gii")
+        if outdir and comm.rank == 0:
+            d = os.path.dirname(outdir)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            for s, m in enumerate(native_warped):
+                m.save(outdir + f"sphere-{s}.dedrift.reg.surf.gii")
+            Mesh(coords=template.coords, faces=template.faces,
+                 data=mean_map).save(outdir + "mean.func.gii")
+            Mesh(coords=template.coords, faces=template.faces,
+                 data=stdev_map).save(outdir + "stdev.func.gii")
 
     return GMSMResult(dedrifted_spheres=native_warped,
                       resampled_data=resampled,

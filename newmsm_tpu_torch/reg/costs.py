@@ -19,14 +19,13 @@ host numpy; their dense float64 searches (`_ball_cover`,
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .. import FIX_NAN, FOLDING, RAD, resolve_device
+from .. import FIX_NAN, FOLDING, RAD, resolve_device, trace
 from ..core import spherical as sph
 from ..core.icosphere import _NVERT_TO_RES, icosphere
 from ..ops import similarity as simi
@@ -103,7 +102,7 @@ def build_patches(cp_coords, src_coords, maxsep, cprange, pmax: int,
     return idx, d_sel < limit, overflow
 
 
-@functools.lru_cache(maxsize=None)
+@trace.cached()
 def _ball_table_np(res: int, n_centres: int, depth: int):
     """(n_centres, C) graph-ball candidate table on the pristine level-`res`
     icosphere, -1 padded (CP ids are a prefix of the fine ids)."""
@@ -115,7 +114,7 @@ def _ball_table_np(res: int, n_centres: int, depth: int):
     return tab
 
 
-@functools.lru_cache(maxsize=None)
+@trace.cached()
 def _ball_cover(res: int, n_centres: int, depth: int,
                 device: torch.device, chunk: int = 512) -> float:
     """Certified pristine cover radius of `_ball_table_np`: the minimum over

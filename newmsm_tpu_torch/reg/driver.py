@@ -8,15 +8,14 @@ MCMC optimiser.
 """
 from __future__ import annotations
 
-import json
 import os
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import RAD, resolve_device
+from .. import trace
 from ..core import io as mio
 from ..core import spherical as sph
 from ..core.icosphere import face_lineage_across
@@ -60,21 +59,9 @@ class MeshRegistration:
         self.verbose = False
         self.debug = False
         self.energy_log: list = []
-        self.metrics_path: Optional[str] = None   # JSONL per-iteration metrics
+        # JSONL events and spans of the run (trace.py); None: tracing off
+        self.metrics_path: Optional[str] = None
         self._issparse = False
-
-    def _log_metrics(self, **kw):
-        """One JSON line per event: energy, label-change share and stage
-        wall-times (seconds, each ending in a device sync)."""
-        if self.metrics_path:
-            with open(self.metrics_path, "a") as f:
-                f.write(json.dumps(kw) + "\n")
-
-    def _clock(self) -> float:
-        """Host time after the device's queued work finished."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
 
     # ---- inputs ----------------------------------------------------------
     def set_input(self, mesh: Mesh | str):
@@ -132,19 +119,22 @@ class MeshRegistration:
 
     # ---- main entry ------------------------------------------------------
     def run_multiresolutions(self, config: RegConfig | str | None = None):
-        if not self.profile_dir:
-            return self._run_multiresolutions(config)
-        # one trace of the whole run (host ops, and the card's kernels when
-        # on cuda), as Chrome trace JSON: chrome://tracing or Perfetto
-        from torch.profiler import ProfilerActivity, profile
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        os.makedirs(self.profile_dir, exist_ok=True)
-        with profile(activities=activities) as prof:
-            out = self._run_multiresolutions(config)
-        prof.export_chrome_trace(os.path.join(self.profile_dir, "trace.json"))
-        return out
+        with trace.run(self.metrics_path, self.device):
+            if not self.profile_dir:
+                return self._run_multiresolutions(config)
+            # one trace of the whole run (host ops, and the card's kernels
+            # when on cuda), as Chrome trace JSON: chrome://tracing or
+            # Perfetto
+            from torch.profiler import ProfilerActivity, profile
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            os.makedirs(self.profile_dir, exist_ok=True)
+            with profile(activities=activities) as prof:
+                out = self._run_multiresolutions(config)
+            prof.export_chrome_trace(os.path.join(self.profile_dir,
+                                                  "trace.json"))
+            return out
 
     def _run_multiresolutions(self, config: RegConfig | str | None = None):
         cfg = config if isinstance(config, RegConfig) else parse_config(config)
@@ -164,27 +154,34 @@ class MeshRegistration:
             if self.verbose:
                 print(f"-- level {self.level}/{cfg.levels} "
                       f"({cfg.cost[level]}, datagrid {cfg.datagrid[level]})")
-            t0 = self._clock()
-            self._initialize_level(level)
-            self._evaluate(level)
-            self._log_metrics(event="level", level=self.level,
-                              cost=cfg.cost[level],
-                              wall_s=round(self._clock() - t0, 4))
-            if self.metrics_path:
+            with trace.span("level") as span:
+                self._initialize_level(level)
+                self._evaluate(level)
+            trace.event("level", level=self.level, cost=cfg.cost[level],
+                        wall_s=round(span.wall_s, 4))
+            if trace.active():
                 # per-level warp distortion (which level spends the
-                # deformation budget)
-                areal, shape = em.distortion_maps(self.sph_orig, self.sph_reg)
-                self._log_metrics(
-                    event="level_distortion", level=self.level,
-                    **{k: round(v, 4) for k, v in
-                       em.distortion_stats(areal, shape).items()})
-        t0 = self._clock()
-        self._write_outputs()
-        self._log_metrics(event="outputs", wall_s=round(self._clock() - t0, 4))
+                # deformation budget): host work of traced runs only
+                with trace.span("level.distortion"):
+                    areal, shape = em.distortion_maps(self.sph_orig,
+                                                      self.sph_reg)
+                    stats = em.distortion_stats(areal, shape)
+                trace.event("level_distortion", level=self.level,
+                            **{k: round(v, 4) for k, v in stats.items()})
+        with trace.span("outputs") as span:
+            self._write_outputs()
+        trace.event("outputs", wall_s=round(span.wall_s, 4))
         return self.sph_reg
 
     # ---- per-level -------------------------------------------------------
     def _initialize_level(self, level: int):
+        """The level's set-up: featurespace, model and host tables, then
+        the previous levels' warp projected onto its grids."""
+        with trace.span("level.init"):
+            self._setup_level(level)
+            self.sph_reg = self._project_cpgrid()
+
+    def _setup_level(self, level: int):
         cfg = self.cfg
         self.feat = fsp.initialise(
             [self.in_mesh, self.ref_mesh], [self.in_data, self.ref_data],
@@ -223,10 +220,10 @@ class MeshRegistration:
         if cfg.regmode == 5:
             if self.in_anat is None or self.ref_anat is None:
                 raise ValueError("--regoption 5 requires anatomical meshes")
-            t0 = self._clock()
-            self.model.anat = self._resample_anatomy(level, control)
-            self._log_metrics(event="anat_setup", level=self.level,
-                              wall_s=round(self._clock() - t0, 4))
+            with trace.span("anat_setup") as span:
+                self.model.anat = self._resample_anatomy(level, control)
+            trace.event("anat_setup", level=self.level,
+                        wall_s=round(span.wall_s, 4))
 
     def _resample_anatomy(self, level: int, control: Mesh) -> C.AnatTables:
         """Static aMSM tables (resample_anatomy, mesh_registration.cpp:250-332):
@@ -290,13 +287,14 @@ class MeshRegistration:
         return out.data
 
     def _evaluate(self, level: int):
-        self.sph_reg = self._project_cpgrid()
         if self.cfg.cost[level] in ("RIGID", "AFFINE"):
             from .rigid import rigid_align
-            self.sph_reg = rigid_align(
-                self.sph_reg, self.sph_orig, self.feat, self.cfg,
-                iters=self.cfg.iters[level], simval=self.cfg.simval[level],
-                verbose=self.verbose, device=self.device)
+            with trace.span("affine"):
+                self.sph_reg = rigid_align(
+                    self.sph_reg, self.sph_orig, self.feat, self.cfg,
+                    iters=self.cfg.iters[level],
+                    simval=self.cfg.simval[level], verbose=self.verbose,
+                    device=self.device)
         else:
             self._run_discrete_opt(level)
 
@@ -355,94 +353,101 @@ class MeshRegistration:
             raise ValueError(f"unknown optimiser {cfg.dopt}")
         energy = 0.0
         for it in range(cfg.iters[level]):
-            t_setup = self._clock()
-            cfw = self._combine_weighting()
-            model.source = self.sph_reg      # reset_meshspace
-            s = model.setup_iteration(cfw)
-            if self.debug:
-                self.sph_reg.save(self._out(f"SOURCE-{self.level}-{it}.surf.gii"))
-                model.cp_grid.save(self._out(f"CPgrid-{self.level}-{it}.surf.gii"))
-                if it == 0:
-                    model.target.save(self._out(f"TARGET-{self.level}.surf.gii"))
+            with trace.span("setup") as setup:
+                cfw = self._combine_weighting()
+                model.source = self.sph_reg      # reset_meshspace
+                s = model.setup_iteration(cfw)
+                if self.debug:
+                    self.sph_reg.save(
+                        self._out(f"SOURCE-{self.level}-{it}.surf.gii"))
+                    model.cp_grid.save(
+                        self._out(f"CPgrid-{self.level}-{it}.surf.gii"))
+                    if it == 0:
+                        model.target.save(
+                            self._out(f"TARGET-{self.level}.surf.gii"))
 
-            t_opt = self._clock()
-            unary = model.unary(s).T                        # (L,K)
-            t_unary = self._clock()
-            labeling = torch.as_tensor(model.labeling).to(dev)
+            with trace.span("unary") as unary_span:
+                unary = model.unary(s).T                    # (L,K)
             extra = {}
-            if cfg.dopt == "MCMC":
-                labeling, newenergy, extra = self._mcmc(level, it, s, unary,
-                                                        labeling)
-            elif model.pairwise_mode:
-                labeling, newenergy = self._fusion_pairs(it, s, unary,
-                                                         labeling)
-            else:
-                tfn = model.triplet_combo_fn(s)
-                labeling = FU.fusion_optimize(
-                    labeling, unary, model.tables.triplets,
-                    model.fusion_tables, tfn, model.num_labels,
-                    generator=torch.Generator().manual_seed(FUSION_SEED))
-                newenergy = float(FU.fusion_energy(
-                    labeling, unary, model.tables.triplets, tfn))
-            labeling = labeling.cpu().numpy()
-            t_done = self._clock()
+            with trace.span("mcmc" if cfg.dopt == "MCMC" else "fusion") \
+                    as opt:
+                labeling = torch.as_tensor(model.labeling).to(dev)
+                if cfg.dopt == "MCMC":
+                    labeling, newenergy, extra = self._mcmc(level, it, s,
+                                                            unary, labeling)
+                elif model.pairwise_mode:
+                    labeling, newenergy = self._fusion_pairs(it, s, unary,
+                                                             labeling)
+                else:
+                    tfn = model.triplet_combo_fn(s)
+                    labeling = FU.fusion_optimize(
+                        labeling, unary, model.tables.triplets,
+                        model.fusion_tables, tfn, model.num_labels,
+                        generator=torch.Generator().manual_seed(FUSION_SEED))
+                    newenergy = float(trace.read(FU.fusion_energy(
+                        labeling, unary, model.tables.triplets, tfn)))
+                labeling = trace.read(labeling).numpy()
+            opt_s = unary_span.wall_s + opt.wall_s
             self.energy_log.append((self.level, it, newenergy))
             changed = float((labeling != 0).mean())
             if self.verbose:
+                times = (f"  [setup {setup.wall_s:.2f}s opt {opt_s:.2f}s]"
+                         if trace.active() else "")
                 print(f"  iter {it}: energy {newenergy:.6f} "
-                      f"({changed:.0%} nodes moved)  "
-                      f"[setup {t_opt - t_setup:.2f}s opt {t_done - t_opt:.2f}s]")
-            self._log_metrics(event="iter", level=self.level, iter=it,
-                              energy=newenergy, changed=changed,
-                              cps=int(labeling.shape[0]),
-                              labels=model.num_labels, pmax=model.pmax,
-                              setup_s=round(t_opt - t_setup, 4),
-                              unary_s=round(t_unary - t_opt, 4),
-                              fusion_s=round(t_done - t_unary, 4),
-                              opt_s=round(t_done - t_opt, 4), **extra)
+                      f"({changed:.0%} nodes moved){times}")
+            trace.event("iter", level=self.level, iter=it,
+                        energy=newenergy, changed=changed,
+                        cps=int(labeling.shape[0]),
+                        labels=model.num_labels, pmax=model.pmax,
+                        setup_s=round(setup.wall_s, 4),
+                        unary_s=round(unary_span.wall_s, 4),
+                        fusion_s=round(opt.wall_s, 4),
+                        opt_s=round(opt_s, 4), **extra)
 
             # convergence (mesh_registration.cpp:206-214)
             if (it > 2 and (it - 1) % 2 == 0
                     and energy - newenergy < 0.001 and cfg.dopt != "MCMC"):
                 break
 
-            prev_cp = model.cp_grid.copy()
-            model.apply_labeling(labeling, s)
-            self.sph_reg = self._warp(self.sph_reg, prev_cp, model.cp_grid)
-            model.cp_grid = self._unfold(model.cp_grid)
-            self.sph_reg = self._unfold(self.sph_reg)
+            with trace.span("warp") as warp:
+                prev_cp = model.cp_grid.copy()
+                model.apply_labeling(labeling, s)
+                self.sph_reg = self._warp(self.sph_reg, prev_cp,
+                                          model.cp_grid)
+                model.cp_grid = self._unfold(model.cp_grid)
+                self.sph_reg = self._unfold(self.sph_reg)
             energy = newenergy
-            self._log_metrics(event="warp", level=self.level, iter=it,
-                              warp_s=round(self._clock() - t_done, 4))
+            trace.event("warp", level=self.level, iter=it,
+                        warp_s=round(warp.wall_s, 4))
 
     def _mcmc(self, level: int, it: int, s, unary, labeling):
         """One MCMC optimiser call over the full (T,L,L,L) strain volume.
         Returns (labeling, energy, metrics fields)."""
         cfg = self.cfg
         model = self.model
-        t0 = self._clock()
-        tcosts = C.triplet_cost_volume(
-            s["rl"], s["cp"], model.tables, cfg.reglambda[level],
-            cfg.shearmod, cfg.bulkmod, cfg.k_exponent, cfg.regexp)
-        # the energy this call starts from (every CP at label 0)
-        energy_start = float(MC.total_energy(labeling, unary, tcosts,
-                                             model.tables.triplets))
-        t_vol = self._clock()
+        with trace.span("mcmc.volume") as volume:
+            tcosts = C.triplet_cost_volume(
+                s["rl"], s["cp"], model.tables, cfg.reglambda[level],
+                cfg.shearmod, cfg.bulkmod, cfg.k_exponent, cfg.regexp)
+            # the energy this call starts from (every CP at label 0)
+            energy_start = float(MC.total_energy(labeling, unary, tcosts,
+                                                 model.tables.triplets))
         mciters = cfg.mciters[level]
         proposals = min(MCMC_PROPOSALS, max(1, mciters))
         gen = torch.Generator(device=self.device).manual_seed(
             MCMC_SEED + 1000 * self.level + it)
-        labeling = MC.mcmc_optimise(
-            labeling, unary, tcosts, model.tables.triplets,
-            model.face_groups, model.face_group_mask, gen, mciters=mciters,
-            num_labels=model.num_labels, dist_param=cfg.mcparam,
-            proposals=proposals)
-        energy = float(MC.total_energy(labeling, unary, tcosts,
-                                       model.tables.triplets))
+        with trace.span("mcmc.sweeps") as run:
+            labeling = MC.mcmc_optimise(
+                labeling, unary, tcosts, model.tables.triplets,
+                model.face_groups, model.face_group_mask, gen,
+                mciters=mciters, num_labels=model.num_labels,
+                dist_param=cfg.mcparam, proposals=proposals)
+            energy = float(MC.total_energy(labeling, unary, tcosts,
+                                           model.tables.triplets))
         sweeps = MC.n_sweeps_for(mciters, proposals)
-        sweep_s = (self._clock() - t_vol) / max(sweeps, 1)
+        sweep_s = run.wall_s / max(sweeps, 1)
         return labeling, energy, dict(energy_start=energy_start,
-                                      volume_s=round(t_vol - t0, 4),
+                                      volume_s=round(volume.wall_s, 4),
                                       sweeps=sweeps,
                                       colors=int(model.face_groups.shape[0]),
                                       sweep_s=round(sweep_s, 6))
@@ -466,14 +471,15 @@ class MeshRegistration:
             model.num_labels,
             generator=torch.Generator().manual_seed(FUSION_SEED),
             pairs=pairs, pair_combo_fn=pfn)
-        energy = float(FU.fusion_energy(labeling, unary, no_triplets, zero,
-                                        pairs=pairs, pair_combo_fn=pfn))
-        if self.metrics_path:
+        energy = float(trace.read(FU.fusion_energy(
+            labeling, unary, no_triplets, zero, pairs=pairs,
+            pair_combo_fn=pfn)))
+        if trace.active():
             vol = pfn.volume
             gated = int((vol >= 1e6).sum())
             chosen = pfn(labeling[pairs[:, 0:1]], labeling[pairs[:, 1:2]])
-            self._log_metrics(
-                event="fold_gate", level=self.level, iter=it,
+            trace.event(
+                "fold_gate", level=self.level, iter=it,
                 gated_entries=gated,
                 gated_fraction=round(gated / float(vol.numel()), 6),
                 chosen_gated=int((chosen >= 1e6).sum()))

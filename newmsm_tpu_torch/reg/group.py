@@ -23,15 +23,13 @@ labeling, an energy or a sphere (tests/test_torch_sharded.py).
 """
 from __future__ import annotations
 
-import json
 import os
-import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from .. import RAD, resolve_device
+from .. import RAD, resolve_device, trace
 from ..core import io as mio
 from ..core.mesh import Mesh
 from ..ops import resample as rsp
@@ -78,7 +76,9 @@ class GroupMeshRegistration:
         self.verbose = False
         self.debug = False
         self.energy_log: list = []
-        self.metrics_path: Optional[str] = None   # JSONL per-iteration metrics
+        # JSONL events and spans of the run (trace.py), written by rank 0;
+        # None: tracing off (on on every rank when any rank sets it)
+        self.metrics_path: Optional[str] = None
         # alpha -> (n_restarts, S*K) int tensor: the fusion optimiser's
         # random starts, injected (a test feeds both packages the same
         # draws); None draws them from a generator seeded with FUSION_SEED
@@ -90,19 +90,6 @@ class GroupMeshRegistration:
         # would not fit the device); the same bits either way
         self.maps_exchange = "auto"
         self.owned = slice(None)
-
-    def _log_metrics(self, **kw):
-        """Same JSONL contract as the pairwise driver: one JSON line per
-        event, written by rank 0 alone."""
-        if self.metrics_path and self.comm.rank == 0:
-            with open(self.metrics_path, "a") as f:
-                f.write(json.dumps(kw) + "\n")
-
-    def _clock(self) -> float:
-        """Host time after the device's queued work finished."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
 
     # ---- inputs ----------------------------------------------------------
     def set_inputs(self, meshes: List[Mesh] | List[str]):
@@ -159,21 +146,29 @@ class GroupMeshRegistration:
 
     # ---- main ------------------------------------------------------------
     def run_multiresolutions(self, config: RegConfig | str | None = None):
-        if not self.profile_dir:
-            return self._run_multiresolutions(config)
-        # one trace of the whole run (host ops, and the card's kernels when
-        # on cuda), as Chrome trace JSON: chrome://tracing or Perfetto
-        from torch.profiler import ProfilerActivity, profile
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        os.makedirs(self.profile_dir, exist_ok=True)
-        with profile(activities=activities) as prof:
-            out = self._run_multiresolutions(config)
-        name = ("trace.json" if self.comm.world == 1
-                else f"trace-rank{self.comm.rank}.json")
-        prof.export_chrome_trace(os.path.join(self.profile_dir, name))
-        return out
+        # tracing guards collectives, so every rank takes one decision
+        on = bool(self.metrics_path)
+        if self.comm.world > 1:
+            on = bool(int(self.comm.max(torch.tensor(
+                [int(on)], device=self.device))[0]))
+        path = self.metrics_path if self.comm.rank == 0 else None
+        with trace.run(path, self.device, on=on):
+            if not self.profile_dir:
+                return self._run_multiresolutions(config)
+            # one trace of the whole run (host ops, and the card's kernels
+            # when on cuda), as Chrome trace JSON: chrome://tracing or
+            # Perfetto
+            from torch.profiler import ProfilerActivity, profile
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            os.makedirs(self.profile_dir, exist_ok=True)
+            with profile(activities=activities) as prof:
+                out = self._run_multiresolutions(config)
+            name = ("trace.json" if self.comm.world == 1
+                    else f"trace-rank{self.comm.rank}.json")
+            prof.export_chrome_trace(os.path.join(self.profile_dir, name))
+            return out
 
     def _run_multiresolutions(self, config: RegConfig | str | None = None):
         cfg = config if isinstance(config, RegConfig) else parse_config(config)
@@ -195,30 +190,30 @@ class GroupMeshRegistration:
                     "AFFINE/RIGID is not supported in groupwise mode")
             if self.verbose and self.comm.rank == 0:
                 print(f"-- groupwise level {self.level}/{cfg.levels}")
-            t0 = self._clock()
-            self._initialize_level(level)
-            t1 = self._clock()
-            self._evaluate(level)
-            self._log_metrics(event="level", level=self.level,
-                              cost=cfg.cost[level],
-                              init_s=round(t1 - t0, 4),
-                              wall_s=round(self._clock() - t0, 4))
+            with trace.span("level") as span:
+                self._initialize_level(level)
+                self._evaluate(level)
+            trace.event("level", level=self.level, cost=cfg.cost[level],
+                        init_s=round(self._init_s, 4),
+                        wall_s=round(span.wall_s, 4))
 
-        t0 = self._clock()
-        self._write_outputs()
-        self._log_metrics(event="outputs", wall_s=round(self._clock() - t0, 4))
-        # per rank: the locate kernel's launches in this process, the most
-        # queries of one launch, and the peak device memory (-1 on the CPU)
-        dev = self.device
-        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
-            else -1
-        per_rank = self.comm.all_gather(torch.tensor(
-            [[locate.LAUNCHES, locate.LARGEST, peak]], dtype=torch.int64,
-            device=dev))
-        self._log_metrics(event="ranks", devices=self.comm.world,
-                          locate_launches=per_rank[:, 0].tolist(),
-                          locate_largest=per_rank[:, 1].tolist(),
-                          peak_device_bytes=per_rank[:, 2].tolist())
+        with trace.span("outputs") as span:
+            self._write_outputs()
+        trace.event("outputs", wall_s=round(span.wall_s, 4))
+        if trace.active():
+            # per rank: the locate kernel's launches in this process, the
+            # most queries of one launch, and the peak device memory (-1 on
+            # the CPU)
+            dev = self.device
+            peak = torch.cuda.max_memory_allocated(dev) \
+                if dev.type == "cuda" else -1
+            per_rank = self.comm.all_gather(torch.tensor(
+                [[locate.LAUNCHES, locate.LARGEST, peak]], dtype=torch.int64,
+                device=dev))
+            trace.event("ranks", devices=self.comm.world,
+                        locate_launches=per_rank[:, 0].tolist(),
+                        locate_largest=per_rank[:, 1].tolist(),
+                        peak_device_bytes=per_rank[:, 2].tolist())
         return self.sph_reg
 
     # ---- level setup -----------------------------------------------------
@@ -227,6 +222,11 @@ class GroupMeshRegistration:
             self.device)
 
     def _initialize_level(self, level: int):
+        with trace.span("level.init") as span:
+            self._setup_level(level)
+        self._init_s = span.wall_s
+
+    def _setup_level(self, level: int):
         cfg = self.cfg
         dev = self.device
         S = len(self.meshes)
@@ -367,90 +367,103 @@ class GroupMeshRegistration:
                     grids[s].coords = data[i]
 
         for it in range(cfg.iters[level]):
-            t0 = self._clock()
+            with trace.span("setup") as setup:
+                if self.debug:
+                    # per-iteration mesh dumps (DiscreteModel.cpp:234-240
+                    # analog)
+                    sync_host_meshes()
+                    for s in ids:
+                        self.sph_reg[s].save(self._out(
+                            f"SOURCE-{s}-{self.level}-{it}.surf.gii"))
+                        self.cp_grids[s].save(self._out(
+                            f"CPgrid-{s}-{self.level}-{it}.surf.gii"))
 
-            if self.debug:
-                # per-iteration mesh dumps (DiscreteModel.cpp:234-240 analog)
-                sync_host_meshes()
-                for s in ids:
-                    self.sph_reg[s].save(
-                        self._out(f"SOURCE-{s}-{self.level}-{it}.surf.gii"))
-                    self.cp_grids[s].save(
-                        self._out(f"CPgrid-{s}-{self.level}-{it}.surf.gii"))
+                # label-deformed template maps of this rank's subjects (no
+                # collective)
+                with trace.span("group.maps"):
+                    maps = self._maps_fn(dg_coords, dg_data)
+                # cross-subject correspondences (all-gathered), then the
+                # incidence + colouring of this iteration's pair structure
+                with trace.span("group.iter_tables"):
+                    partner = self._partner_fn(cp)
+                    tables = GF.build_iteration_tables(
+                        trace.read(partner).numpy(), self.cp_triplets, S, K,
+                        dev)
 
-            # label-deformed template maps of this rank's subjects (no
-            # collective) and cross-subject correspondences (all-gathered)
-            maps = self._maps_fn(dg_coords, dg_data)
-            partner = self._partner_fn(cp)
-
-            # incidence + colouring for this iteration's pair structure
-            tables = GF.build_iteration_tables(
-                partner.cpu().numpy(), self.cp_triplets, S, K, dev)
-
-            t1 = self._clock()
-            labeling0 = torch.zeros(S * K, dtype=torch.int64, device=dev)
-            labeling, energy_dev, need_dev = self._fusion_fn(
-                maps, cp, spac, labeling0, partner, tables)
-            patch_need = int(need_dev)
-            patch_overflow = max(0, patch_need - self.pmax)
-            # the reference's patches are uncapped (DiscreteGroupModel.cpp:
-            # 88-121): on truncation, pre-size pmax from the measured max
-            # in-range count (+10% headroom, rounded to 16) and redo this
-            # iteration. patch_need is MAX-combined over the ranks, so all
-            # ranks regrow together
-            nt = self.template.nvertices
-            while patch_overflow and self.pmax < nt:
-                self.pmax = int(min(nt, max(
-                    self.pmax + 16, -(-int(patch_need * 1.1) // 16) * 16)))
-                if self.comm.rank == 0:
-                    print(f"groupwise level {self.level} iter {it}: patches "
-                          f"need {patch_need} slots; growing pmax to "
-                          f"{self.pmax}")
-                self.level_statics = self.level_statics._replace(
-                    pmax=self.pmax)
-                self._fusion_fn = self._make_fusion_fn()
+            with trace.span("opt") as opt:
+                labeling0 = torch.zeros(S * K, dtype=torch.int64, device=dev)
                 labeling, energy_dev, need_dev = self._fusion_fn(
                     maps, cp, spac, labeling0, partner, tables)
-                patch_need = int(need_dev)
+                patch_need = int(trace.read(need_dev))
                 patch_overflow = max(0, patch_need - self.pmax)
-            newenergy = float(energy_dev)
-            t2 = self._clock()
+                # the reference's patches are uncapped
+                # (DiscreteGroupModel.cpp:88-121): on truncation, pre-size
+                # pmax from the measured max in-range count (+10% headroom,
+                # rounded to 16) and redo this iteration. patch_need is
+                # MAX-combined over the ranks, so all ranks regrow together
+                nt = self.template.nvertices
+                regrows = 0
+                while patch_overflow and self.pmax < nt:
+                    with trace.span("group.regrow"):
+                        trace.count("pmax_before", self.pmax)
+                        self.pmax = int(min(nt, max(
+                            self.pmax + 16,
+                            -(-int(patch_need * 1.1) // 16) * 16)))
+                        trace.count("pmax_after", self.pmax)
+                        if self.comm.rank == 0:
+                            print(f"groupwise level {self.level} iter {it}: "
+                                  f"patches need {patch_need} slots; "
+                                  f"growing pmax to {self.pmax}")
+                        self.level_statics = self.level_statics._replace(
+                            pmax=self.pmax)
+                        self._fusion_fn = self._make_fusion_fn()
+                        labeling, energy_dev, need_dev = self._fusion_fn(
+                            maps, cp, spac, labeling0, partner, tables)
+                        patch_need = int(trace.read(need_dev))
+                        patch_overflow = max(0, patch_need - self.pmax)
+                    regrows += 1
+                trace.count("regrows", regrows)
+                newenergy = float(trace.read(energy_dev))
             self.energy_log.append((self.level, it, newenergy))
-            changed = float((labeling != 0).float().mean())
-            # every rank's own stage seconds and pair-block batches
-            secs = self.comm.all_gather(torch.tensor(
-                [[t1 - t0, t2 - t1, self._fusion_fn.pair_chunks]],
-                dtype=torch.float64, device=dev))
+            changed = float(trace.read((labeling != 0).float().mean()))
+            if trace.active():
+                # every rank's own stage seconds and pair-block batches
+                secs = self.comm.all_gather(torch.tensor(
+                    [[setup.wall_s, opt.wall_s,
+                      self._fusion_fn.pair_chunks]],
+                    dtype=torch.float64, device=dev))
+                trace.event("iter", level=self.level, iter=it,
+                            energy=newenergy, changed=changed,
+                            patch_overflow=patch_overflow,
+                            pmax=self.pmax, devices=self.comm.world,
+                            maps_exchange=self._maps_exchange_used,
+                            colors=len(tables.groups),
+                            setup_s=round(setup.wall_s, 4),
+                            opt_s=round(opt.wall_s, 4),
+                            setup_s_by_rank=[round(float(x), 4)
+                                             for x in secs[:, 0]],
+                            opt_s_by_rank=[round(float(x), 4)
+                                           for x in secs[:, 1]],
+                            pair_chunk_blocks=(
+                                self._fusion_fn.pair_chunk_blocks),
+                            pair_chunks_by_rank=[int(x)
+                                                 for x in secs[:, 2]])
             if self.verbose and self.comm.rank == 0:
+                times = (f"  [setup {setup.wall_s:.2f}s opt "
+                         f"{opt.wall_s:.2f}s]" if trace.active() else "")
                 print(f"  iter {it}: energy {newenergy:.4f} "
-                      f"({changed:.0%} nodes moved)  "
-                      f"[setup {t1 - t0:.2f}s opt {t2 - t1:.2f}s]")
-            self._log_metrics(event="iter", level=self.level, iter=it,
-                              energy=newenergy, changed=changed,
-                              patch_overflow=patch_overflow,
-                              pmax=self.pmax, devices=self.comm.world,
-                              maps_exchange=self._maps_exchange_used,
-                              colors=len(tables.groups),
-                              setup_s=round(t1 - t0, 4),
-                              opt_s=round(t2 - t1, 4),
-                              setup_s_by_rank=[round(float(x), 4)
-                                               for x in secs[:, 0]],
-                              opt_s_by_rank=[round(float(x), 4)
-                                             for x in secs[:, 1]],
-                              pair_chunk_blocks=(
-                                  self._fusion_fn.pair_chunk_blocks),
-                              pair_chunks_by_rank=[int(x)
-                                                   for x in secs[:, 2]])
+                      f"({changed:.0%} nodes moved){times}")
 
             if it > 1 and (energy - newenergy < newenergy * 0.01):
                 break
 
             # apply labeling: unfold + warp on the device
             # (group_mesh_registration.cpp:104-115)
-            dg_coords, cp, spac = self._apply_fn(dg_coords, cp, labeling)
+            with trace.span("warp") as warp:
+                dg_coords, cp, spac = self._apply_fn(dg_coords, cp, labeling)
             energy = newenergy
-            self._log_metrics(event="warp", level=self.level, iter=it,
-                              warp_s=round(self._clock() - t2, 4))
+            trace.event("warp", level=self.level, iter=it,
+                        warp_s=round(warp.wall_s, 4))
 
         sync_host_meshes()
 

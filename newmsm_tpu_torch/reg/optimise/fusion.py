@@ -18,13 +18,12 @@ same starts.
 """
 from __future__ import annotations
 
-import functools
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ... import resolve_device
+from ... import resolve_device, trace
 from .coloring import color_groups, greedy_color, vertex_coloring_from_faces
 
 
@@ -97,7 +96,7 @@ def build_fusion_tables(triplets: np.ndarray, nverts: int,
 _BITS = ((np.arange(8)[:, None] >> np.array([2, 1, 0])) & 1).astype(np.int64)
 
 
-@functools.lru_cache(maxsize=None)
+@trace.cached()
 def bits(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_BITS).to(device)
 
@@ -256,12 +255,13 @@ def fusion_optimize(labeling, unary, triplets, tables: FusionTables,
 
     for i in range(sweeps * num_labels):
         alpha = i % num_labels
-        x = fusion_binary_solve(labeling, alpha, unary, triplets, tables,
-                                triplet_combo_fn, icm_passes, n_restarts,
-                                starts_for(alpha), pairs=pairs,
-                                pair_combo_fn=pair_combo_fn)
-        labeling = torch.where(x == 1, torch.full_like(labeling, alpha),
-                               labeling)
+        with trace.mark("fusion.move"):
+            x = fusion_binary_solve(labeling, alpha, unary, triplets, tables,
+                                    triplet_combo_fn, icm_passes, n_restarts,
+                                    starts_for(alpha), pairs=pairs,
+                                    pair_combo_fn=pair_combo_fn)
+            labeling = torch.where(x == 1, torch.full_like(labeling, alpha),
+                                   labeling)
     return labeling
 
 

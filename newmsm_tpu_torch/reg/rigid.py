@@ -6,14 +6,15 @@ rotated source vertex and its angular neighbourhood on the target, one
 masked dense product per chunk of source vertices; the annealed
 finite-difference ascent over 3 Euler angles is the reference's loop, with
 the JAX package's lax.while_loop written as a Python loop (one host sync
-per iteration, to read the `done` flag).
+per iteration, to read the `done` flag). Under tracing each gradient step
+is an `affine.step` mark and each cost evaluation a `cost_evals` count.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .. import RAD, resolve_device
+from .. import RAD, resolve_device, trace
 from ..core import spherical as sph
 from ..core.mesh import Mesh
 
@@ -89,6 +90,7 @@ def rigid_align(sph_reg: Mesh, sph_orig: Mesh, feat, cfg, iters: int,
     tgt_coords = f32(sph_orig.coords)
 
     def cost(coords, a1, a2, a3):
+        trace.count("cost_evals")
         return rigid_cost(torch.stack([a1, a2, a3]), coords, src_c,
                           tgt_coords, tgt_c, cos_ang, min_sigma, simval)
 
@@ -96,7 +98,7 @@ def rigid_align(sph_reg: Mesh, sph_orig: Mesh, feat, cfg, iters: int,
     coords = f32(src.coords)
     grad_zero = cost(coords, z, z, z)
     mingrad = grad_zero
-    rec_init = float(grad_zero)
+    rec_init = trace.read(grad_zero)
     rec_final = 0.0
     min_iter = 0
     spacing = cfg.gradsampling
@@ -105,28 +107,32 @@ def rigid_align(sph_reg: Mesh, sph_orig: Mesh, feat, cfg, iters: int,
         per = torch.tensor(spacing, dtype=torch.float32, device=dev)
         step = torch.tensor(cfg.stepsize, dtype=torch.float32, device=dev)
         for it in range(1, iters + 1):
-            g = torch.stack([cost(coords, per, z, z) - grad_zero,
-                             cost(coords, z, per, z) - grad_zero,
-                             cost(coords, z, z, per) - grad_zero]) / per
-            n = torch.linalg.norm(g)
-            g = torch.where(n > 0, g / torch.where(n > 0, n, torch.ones_like(n)), g)
-            euler = step * g
-            new_coords = sph.apply_euler(coords, euler[0], euler[1], euler[2])
-            new_grad = cost(new_coords, z, z, z)
+            with trace.mark("affine.step"):
+                g = torch.stack([cost(coords, per, z, z) - grad_zero,
+                                 cost(coords, z, per, z) - grad_zero,
+                                 cost(coords, z, z, per) - grad_zero]) / per
+                n = torch.linalg.norm(g)
+                g = torch.where(n > 0, g / torch.where(
+                    n > 0, n, torch.ones_like(n)), g)
+                euler = step * g
+                new_coords = sph.apply_euler(coords, euler[0], euler[1],
+                                             euler[2])
+                new_grad = cost(new_coords, z, z, z)
 
-            total_it = loop * iters + it
-            if bool(new_grad > mingrad):
-                mingrad = new_grad
-                min_iter = total_it
-                rec_final = float(mingrad)
-            if total_it - min_iter > 0:
-                step = step * 0.5          # revert the move, halve the step
-            else:
-                coords = new_coords
-            # the reference keeps the NEW cost in grad_zero even when the
-            # move is reverted (rigid_costfunction.cpp:203-218)
-            grad_zero = new_grad
-            if bool(step < 1e-3):
+                total_it = loop * iters + it
+                if trace.read(new_grad > mingrad):
+                    mingrad = new_grad
+                    min_iter = total_it
+                    rec_final = trace.read(mingrad)
+                if total_it - min_iter > 0:
+                    step = step * 0.5      # revert the move, halve the step
+                else:
+                    coords = new_coords
+                # the reference keeps the NEW cost in grad_zero even when
+                # the move is reverted (rigid_costfunction.cpp:203-218)
+                grad_zero = new_grad
+                done = trace.read(step < 1e-3)
+            if done:
                 break
         loop += 1
         spacing *= 0.5
@@ -135,5 +141,5 @@ def rigid_align(sph_reg: Mesh, sph_orig: Mesh, feat, cfg, iters: int,
         print(f"  rigid: improvement "
               f"{abs((rec_final - rec_init) / rec_final) * 100:.2f}%")
     out = src.copy()
-    out.coords = coords.cpu().numpy().astype(np.float64)
+    out.coords = trace.read(coords).numpy().astype(np.float64)
     return out
