@@ -8,15 +8,21 @@ no result line:
 
   1. device   require CUDA; print the card's name and power limit
               (nvidia-smi) and the torch / CUDA versions;
-  2. build    compile the locate kernel (csrc/locate_bary.cu) with nvcc;
-              print its ptxas line (registers, spills) and resident grid;
-  3. kernel   the kernel against its plain PyTorch version on the card:
+  2. build    compile the kernels (csrc/locate_bary.cu, K1, and
+              csrc/icm_binary.cu, K2) with nvcc; print their ptxas lines
+              (registers, spills) and K1's resident grid;
+  3. kernel   K1 against its plain PyTorch version on the card:
               2^20 random directions plus every vertex of ico-res, res in
               {0,2,4,6}; row sums, reconstructed positions, vertex mass and
               face-id agreement;
               then queries off the sphere (radius 0.5 to 150, as the
               anatomical cost sends them) in one call of 1,966,080, the
               size of a triclique call at ico-6;
+              then K2 against its plain version (reg/optimise/fusion.py
+              _binary_icm + binary_energy) in its three forms (triplet,
+              pair, group) at ico-2/3/4 and the group's N for S = 8:
+              bit for bit on small-integer tables, and two launches
+              equal on Gaussian tables;
   4. main     the pairwise strain-registration path through the CLI
               (config_standard_MSM_strain, --it cut to 10,3,3,3) on an ico-6
               synthetic subject; checks outputs, folds, the sulc CC gain and
@@ -65,11 +71,14 @@ no result line:
               to the one-rank run's; prints the pair-block batches of each
               level (S = 8 has 28 blocks: the chunked branch), per-rank peak
               memory, setup_s / opt_s of each iteration and the walls;
- 12. timing   the kernel and its plain version at the shape of the main
+ 12. timing   K1 and its plain version at the shape of the main
               path's largest locate call: windows of back-to-back launches
               between CUDA events (median and spread), the SM clock and
               power sampled under the load, the roofline bound and the
-              issue-slot bound from the SASS instruction count.
+              issue-slot bound from the SASS instruction count; then K2
+              and its plain version a move at the ico-4 strain shape and
+              the gmsm_s8 last-level shape, beside the chain of passes x
+              colours block barriers.
 
 Phases 4 to 9 and phase 11's one-rank run each set the kernel's launch
 count to 0 before the call and read it after; the ranks of phases 10 and 11
@@ -277,14 +286,21 @@ def phase_device(torch):
 
 
 def phase_build():
-    from newmsm_tpu_torch.ops import _build, locate
+    from newmsm_tpu_torch.ops import _build, icm, locate
     t0 = time.perf_counter()
     locate._library()
-    print(f"build: {locate.SOURCE} ready (nvcc at first use) in "
-          f"{time.perf_counter() - t0:.2f} s")
+    icm.library()
+    print(f"build: {locate.SOURCE} and {icm.SOURCE} ready (nvcc at first "
+          f"use) in {time.perf_counter() - t0:.2f} s")
     name = f"{locate.KERNEL}ILi{MAIN_RES}E"
     print(f"build: ptxas, res {MAIN_RES} kernel: "
           f"{_build.ptxas_usage(locate.SOURCE, name)}")
+    for form, args in (("t8, shared x", "ILb1ELb0ELb1E"),
+                       ("p4, shared x", "ILb0ELb1ELb1E"),
+                       ("t8 + p4, shared x", "ILb1ELb1ELb1E"),
+                       ("t8 + p4, x in device memory", "ILb1ELb1ELb0E")):
+        print(f"build: ptxas, K2 {form}: "
+              f"{_build.ptxas_usage(icm.SOURCE, icm.KERNEL + args)}")
     print(f"build: grid capped at {locate.resident_blocks(MAIN_RES, 'cuda')} "
           f"resident blocks (occupancy x SMs)")
 
@@ -373,7 +389,41 @@ def phase_kernel(torch):
     check(Wk.min() >= -1e-4, f"off-sphere: negative weight {Wk.min()}")
     check(mism <= 1e-4 * BIG_CALL_QUERIES,
           f"off-sphere: {mism} face-id mismatches")
+    phase_icm_kernel()
     return max(worst_pos, pos_err)
+
+
+# K2's forms and sizes: (form, control-grid level, subjects)
+ICM_CASES = (("t8", 2, 1), ("t8", 3, 1), ("t8", 4, 1), ("p4", 2, 1),
+             ("p4", 3, 1), ("p4", 4, 1), ("group", 4, GMSM_SUBJECTS))
+
+
+def _icm_problem(form, res, S, integer, seed=0):
+    from newmsm_tpu_torch.ops import icm_bench
+    if form == "group":
+        return icm_bench.group_problem(S, res, "cuda", seed, integer)
+    return icm_bench.pairwise_problem(res, form, "cuda", seed, integer)
+
+
+def phase_icm_kernel():
+    """K2 against its plain version, as tests/test_torch_cuda.py holds it:
+    on small-integer tables (exact float32 sums) equal bit for bit; on
+    Gaussian tables two launches equal (the rows that differ from the
+    plain version and the largest energy gap are printed)."""
+    from newmsm_tpu_torch.ops import icm_bench
+    for form, res, S in ICM_CASES:
+        exact = icm_bench.compare(_icm_problem(form, res, S, True))
+        real = icm_bench.compare(_icm_problem(form, res, S, False, seed=1))
+        print(f"K2 {form} ico-{res} S={S}: integer tables xs/es equal "
+              f"{exact['xs_equal']}/{exact['es_equal']}; Gaussian tables "
+              f"rows differing {real['rows_differ']}, energy gap "
+              f"{real['energy_rel_gap']:.2e}, chosen same "
+              f"{real['chosen_same']}; repeats "
+              f"{exact['repeats'] and real['repeats']}")
+        check(exact["xs_equal"] and exact["es_equal"],
+              f"K2 {form} ico-{res}: differs from its twin on exact tables")
+        check(exact["repeats"] and real["repeats"],
+              f"K2 {form} ico-{res}: two launches differ")
 
 
 def phase_timing(torch, n_queries: int, res: int):
@@ -414,6 +464,30 @@ def phase_timing(torch, n_queries: int, res: int):
     return k, plain, roof
 
 
+def phase_icm_timing():
+    """K2 and its plain version a move, at the ico-4 strain shape and the
+    gmsm_s8 last-level shape, beside K2's floors: the same launch with
+    empty colour groups (the chain of cluster barriers alone) and with no
+    tables (a barrier and one dependent gather a step), all on the card's
+    clock, and the host's rate of launches (ops/icm_bench.py)."""
+    from newmsm_tpu_torch.ops import icm_bench
+    out = {}
+    for name, make in icm_bench.SHAPES.items():
+        out[name] = t = icm_bench.time_move(make("cuda"))
+        print(f"K2 time {name} ({t['nodes']} nodes, {t['starts']} starts, "
+              f"{t['barrier_chain']} barrier steps): kernel "
+              f"{t['kernel_ms']:.4f} ms a move (ms_spread "
+              f"{t['kernel_ms_spread']:.3f}), plain {t['plain_ms']:.3f} ms; "
+              f"floors: barriers alone {t['barrier_floor_ms']:.4f} ms "
+              f"({t['barrier_step_us']:.2f} us a step), one dependent "
+              f"gather a node {t['gather_floor_ms']:.4f} ms "
+              f"({t['gather_step_us']:.2f} us a step), kernel "
+              f"{t['kernel_step_us']:.2f} us a step; share of the gather "
+              f"floor {t['floor_share']:.3f}; the host's launch rate "
+              f"{t['host_launch_ms']:.4f} ms a launch")
+    return out
+
+
 def _cc(a, b) -> float:
     return float(np.corrcoef(a, b)[0, 1])
 
@@ -442,15 +516,43 @@ def write_inputs(workdir, tag, in_mesh, in_data, ref_mesh, ref_data,
     return args
 
 
+def span_total(events, name) -> int:
+    """Sum of counter `name` (a mark's n, or a count) over the span lines
+    of a metrics file."""
+    total = 0
+    for e in events:
+        c = e["counters"].get(name) if e.get("event") == "span" else None
+        if c is not None:
+            total += c["n"] if isinstance(c, dict) else c
+    return total
+
+
+def check_icm(tag, launches, events, move):
+    """K2's launches of one path (by rank, or one number) against the
+    run's metrics file: each rank launched once per `move` mark (each rank
+    runs the whole ICM), the spans count as many `icm.kernel` and no
+    `icm.twin`."""
+    moves = span_total(events, move)
+    kernel = span_total(events, "icm.kernel")
+    twin = span_total(events, "icm.twin")
+    by_rank = launches if isinstance(launches, list) else [launches]
+    print(f"{tag}: icm_binary launches {by_rank} (by rank), {move} marks "
+          f"{moves}, icm.kernel counts {kernel}, icm.twin counts {twin}")
+    check(all(n == moves for n in by_rank) and kernel == moves and twin == 0,
+          f"{tag}: K2 launches {by_rank} / icm.kernel {kernel} / icm.twin "
+          f"{twin} do not match the {moves} {move} marks")
+
+
 def run_path(torch, workdir, tag, inputs, config_text, warm_runs=0,
              extra=()):
-    """One path through the port's CLI on the card, with the kernel's
-    launch count set to 0 just before and read just after; `warm_runs` more
+    """One path through the port's CLI on the card, with the kernels'
+    launch counts set to 0 just before and read just after; `warm_runs` more
     runs in the same process afterwards (tables cached), timed and their
-    stage seconds kept. Returns (output prefix, events, (launches, most
-    queries in one launch), warm events of the last warm run or None)."""
+    stage seconds kept. Returns (output prefix, events, (K1 launches, most
+    queries in one K1 launch, K2 launches), warm events of the last warm
+    run or None)."""
     from newmsm_tpu_torch import cli
-    from newmsm_tpu_torch.ops import locate
+    from newmsm_tpu_torch.ops import icm, locate
 
     conf = os.path.join(workdir, f"{tag}.conf")
     with open(conf, "w") as f:
@@ -467,13 +569,14 @@ def run_path(torch, workdir, tag, inputs, config_text, warm_runs=0,
         return wall, [json.loads(line) for line in open(metrics)]
 
     out = os.path.join(workdir, f"{tag}_out_")
-    locate.LAUNCHES = locate.LARGEST = 0
+    locate.LAUNCHES = locate.LARGEST = icm.LAUNCHES = 0
     wall, events = run_cli(out)
-    launches = (locate.LAUNCHES, locate.LARGEST)
+    launches = (locate.LAUNCHES, locate.LARGEST, icm.LAUNCHES)
     print(f"{tag}: cli wall {wall:.2f} s, locate_bary launches "
           f"{launches[0]}, the largest of {launches[1]} queries")
     check(launches[0] > 0,
           f"{tag}: the path never launched the locate kernel")
+    check_icm(tag, launches[2], events, "fusion.move")
     warm_events = None
     if warm_runs:
         warm = []
@@ -774,7 +877,7 @@ def phase_group(torch, workdir, profile=False):
     from newmsm_tpu_torch.core.mesh import Mesh
     from newmsm_tpu_torch.eval import metrics
     from newmsm_tpu_torch.eval.synth import synth_cohort
-    from newmsm_tpu_torch.ops import locate
+    from newmsm_tpu_torch.ops import icm, locate
     from newmsm_tpu_torch.ops.unfold import count_folds
     from newmsm_tpu_torch.pipelines import gmsm
 
@@ -809,7 +912,7 @@ def phase_group(torch, workdir, profile=False):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    locate.LAUNCHES = locate.LARGEST = 0
+    locate.LAUNCHES = locate.LARGEST = icm.LAUNCHES = 0
     t0 = time.perf_counter()
     rc = cli.main(["--groupwise", "--meshes", lists["meshes"], "--data",
                    lists["data"], "--template", tmpl_path, "-o", out,
@@ -817,7 +920,7 @@ def phase_group(torch, workdir, profile=False):
                    "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = (locate.LAUNCHES, locate.LARGEST)
+    launches = (locate.LAUNCHES, locate.LARGEST, icm.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"group: cli returned {rc}")
     print(f"group: cli wall {wall:.2f} s, locate_bary launches "
@@ -826,6 +929,7 @@ def phase_group(torch, workdir, profile=False):
     check(launches[0] > 0, "group: the path never launched the locate kernel")
 
     events = [json.loads(line) for line in open(metrics_path)]
+    check_icm("group", launches[2], events, "group.alpha")
     iters = [e for e in events if e["event"] == "iter"]
     warp = {(e["level"], e["iter"]): e["warp_s"] for e in events
             if e["event"] == "warp"}
@@ -976,8 +1080,8 @@ def run_ranks_cmd(cmd, timeout):
 def _torchrun_group(workdir, ref, tag, backend):
     """phase_group's CLI call under torchrun, 2 ranks on --device cuda with
     `backend`; checks energies, devices and spheres against phase_group
-    bitwise. Returns (locate launches summed over the ranks, the largest
-    call) and the level walls."""
+    bitwise. Returns (K1 launches summed over the ranks, the largest call,
+    K2 launches summed over the ranks) and the level walls."""
     from newmsm_tpu_torch.core import io as mio
     from newmsm_tpu_torch.core.mesh import Mesh
     out = os.path.join(workdir, f"{tag}_out_")
@@ -1017,6 +1121,7 @@ def _torchrun_group(workdir, ref, tag, backend):
           f"{tag}: an iter event does not read devices 2")
     check(min(ranks["locate_launches"]) > 0,
           f"{tag}: a rank never launched the locate kernel")
+    check_icm(tag, ranks["icm_launches"], events, "group.alpha")
     energies = [e["energy"] for e in iters]
     same_e = energies == ref["energies"]
     same_s = [np.array_equal(Mesh.load(out + f"sphere-{s}.reg.surf.gii")
@@ -1033,7 +1138,8 @@ def _torchrun_group(workdir, ref, tag, backend):
     check(all(same_s), f"{tag}: output spheres differ from phase group's")
     check(all(same_m), f"{tag}: transformed maps differ from phase group's")
     walls = [e["wall_s"] for e in events if e["event"] == "level"]
-    return (sum(ranks["locate_launches"]), max(ranks["locate_largest"])), walls
+    return (sum(ranks["locate_launches"]), max(ranks["locate_largest"]),
+            sum(ranks["icm_launches"])), walls
 
 
 def _group_ring_rank(lists, tmpl_path, conf, out, device="cuda"):
@@ -1042,7 +1148,7 @@ def _group_ring_rank(lists, tmpl_path, conf, out, device="cuda"):
     import torch
     import torch.distributed as dist
     from newmsm_tpu_torch.cli import read_list_file
-    from newmsm_tpu_torch.ops import locate
+    from newmsm_tpu_torch.ops import icm, locate
     from newmsm_tpu_torch.parallel import multihost as mh
     from newmsm_tpu_torch.reg.group import GroupMeshRegistration
     g = GroupMeshRegistration(device=mh.rank_device(device),
@@ -1061,6 +1167,7 @@ def _group_ring_rank(lists, tmpl_path, conf, out, device="cuda"):
                 levels=[lv for lv, _, _ in g.energy_log],
                 exchange=g._maps_exchange_used, world=g.comm.world,
                 launches=locate.LAUNCHES, largest=locate.LARGEST,
+                icm_launches=icm.LAUNCHES,
                 peak=torch.cuda.max_memory_allocated() if cuda else -1)
 
 
@@ -1084,8 +1191,9 @@ def phase_group_sharded(torch, workdir, ref):
     ring = mh.run_local_ranks(
         _group_ring_rank, 2, backend="gloo", timeout=600,
         args=(ref["lists"], ref["tmpl"], conf2, ring_out))
-    ring_walls = [e["wall_s"] for e in map(json.loads, open(
-        ring_out + "metrics.jsonl")) if e["event"] == "level"]
+    ring_events = [json.loads(line) for line in open(ring_out
+                                                      + "metrics.jsonl")]
+    ring_walls = [e["wall_s"] for e in ring_events if e["event"] == "level"]
     print(f"group_ring: level walls, levels 1-2, W = 2 on the one card: "
           f"ring {ring_walls} s, gather (the torchrun run above) "
           f"{gather_walls[:2]} s")
@@ -1104,8 +1212,11 @@ def phase_group_sharded(torch, workdir, ref):
           f"from phase group's levels 1-2 {want}")
     check(min(r["launches"] for r in ring) > 0,
           "group_ring: a rank never launched the locate kernel")
+    check_icm("group_ring", [r["icm_launches"] for r in ring], ring_events,
+              "group.alpha")
     by_path["group_ring"] = (sum(r["launches"] for r in ring),
-                             max(r["largest"] for r in ring))
+                             max(r["largest"] for r in ring),
+                             sum(r["icm_launches"] for r in ring))
     if torch.cuda.device_count() >= 2:
         by_path["group_sharded_nccl"], _ = _torchrun_group(
             workdir, ref, "group_sharded_nccl", "nccl")
@@ -1129,7 +1240,7 @@ def _gmsm_rank(meshes, datasets, template, conf, metrics_path):
     this rank's card; its summary, launches, wall and peak memory."""
     import torch
     import torch.distributed as dist
-    from newmsm_tpu_torch.ops import locate
+    from newmsm_tpu_torch.ops import icm, locate
     from newmsm_tpu_torch.parallel import multihost as mh
     from newmsm_tpu_torch.pipelines import gmsm
     dev = mh.rank_device("cuda")
@@ -1139,6 +1250,7 @@ def _gmsm_rank(meshes, datasets, template, conf, metrics_path):
     torch.cuda.synchronize(dev)
     return dict(_gmsm_summary(res), wall=time.perf_counter() - t0,
                 launches=locate.LAUNCHES, largest=locate.LARGEST,
+                icm_launches=icm.LAUNCHES,
                 peak=torch.cuda.max_memory_allocated(dev), device=str(dev))
 
 
@@ -1154,8 +1266,8 @@ def _same_gmsm(got, want) -> dict:
 
 
 def _print_gmsm_iters(tag, metrics_path):
-    """The per-iteration lines of a run_gmsm metrics file; returns the iter
-    events."""
+    """The per-iteration lines of a run_gmsm metrics file; returns (the
+    iter events, all events)."""
     events = [json.loads(line) for line in open(metrics_path)]
     iters = [e for e in events if e["event"] == "iter"]
     for e in iters:
@@ -1169,7 +1281,7 @@ def _print_gmsm_iters(tag, metrics_path):
         if e["event"] == "level":
             print(f"{tag}: level {e['level']}: wall {e['wall_s']} s, of which "
                   f"level set-up {e['init_s']} s")
-    return iters
+    return iters, events
 
 
 def phase_gmsm_ranks(torch, workdir):
@@ -1179,7 +1291,7 @@ def phase_gmsm_ranks(torch, workdir):
     from newmsm_tpu_torch.core.mesh import Mesh
     from newmsm_tpu_torch.eval import metrics
     from newmsm_tpu_torch.eval.synth import synth_cohort
-    from newmsm_tpu_torch.ops import locate
+    from newmsm_tpu_torch.ops import icm, locate
     from newmsm_tpu_torch.ops.unfold import count_folds
     from newmsm_tpu_torch.parallel import group_fusion as GF
     from newmsm_tpu_torch.parallel import multihost as mh
@@ -1202,20 +1314,21 @@ def phase_gmsm_ranks(torch, workdir):
     one_metrics = os.path.join(workdir, "gmsm_one_metrics.jsonl")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    locate.LAUNCHES = locate.LARGEST = 0
+    locate.LAUNCHES = locate.LARGEST = icm.LAUNCHES = 0
     t0 = time.perf_counter()
     res = gmsm.run_gmsm(meshes, datasets, template, conf, device="cuda",
                         metrics_path=one_metrics)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = (locate.LAUNCHES, locate.LARGEST)
+    launches = (locate.LAUNCHES, locate.LARGEST, icm.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     one = _gmsm_summary(res)
     print(f"gmsm_ranks: one rank: wall {wall:.2f} s, locate_bary launches "
           f"{launches[0]}, the largest of {launches[1]} queries; peak device "
           f"memory {peak / 2**30:.3f} GiB")
     check(launches[0] > 0, "gmsm_ranks: the path never launched the kernel")
-    iters = _print_gmsm_iters("gmsm_ranks one rank", one_metrics)
+    iters, one_events = _print_gmsm_iters("gmsm_ranks one rank", one_metrics)
+    check_icm("gmsm_ranks one rank", launches[2], one_events, "group.alpha")
     check(all(np.isfinite(e["energy"]) for e in iters),
           "gmsm_ranks: energies not finite")
     levels = sorted({e["level"] for e in iters})
@@ -1256,7 +1369,9 @@ def phase_gmsm_ranks(torch, workdir):
               f"locate_bary launches by rank {[r['launches'] for r in ranks]} "
               f"(largest {[r['largest'] for r in ranks]}); peak device memory "
               f"by rank {[round(r['peak'] / 2**30, 3) for r in ranks]} GiB")
-        rank_iters = _print_gmsm_iters(tag, rank_metrics)
+        rank_iters, rank_events = _print_gmsm_iters(tag, rank_metrics)
+        check_icm(tag, [r["icm_launches"] for r in ranks], rank_events,
+                  "group.alpha")
         check(all(e["devices"] == 2 for e in rank_iters),
               f"{tag}: an iter event does not read devices 2")
         for r, got in enumerate(ranks):
@@ -1268,7 +1383,8 @@ def phase_gmsm_ranks(torch, workdir):
         total = sum(r["launches"] for r in ranks)
         check(total == launches[0], f"{tag}: {total} launches over the "
                                     f"ranks, {launches[0]} on one rank")
-        by_path[tag] = (total, max(r["largest"] for r in ranks))
+        by_path[tag] = (total, max(r["largest"] for r in ranks),
+                        sum(r["icm_launches"] for r in ranks))
     if len(backends) == 1:
         print("gmsm_ranks_nccl: not run: this machine has "
               f"{torch.cuda.device_count()} card, and NCCL refuses two ranks "
@@ -1322,22 +1438,33 @@ def main(argv=None) -> int:
         by_path.update(phase_gmsm_ranks(torch, workdir))
     k, plain, roof = phase_timing(torch, n_queries, MAIN_RES)
     # and at the largest call of the new paths (triclique / anatomical)
-    largest = max(n for _, n in by_path.values())
+    largest = max(q for _, q, _ in by_path.values())
     kl, plainl, roofl = phase_timing(torch, largest, MAIN_RES)
+    # K2 runs on every path with a DISCRETE level; MCMC bypasses it
+    for path, (_, _, n) in by_path.items():
+        check((n == 0) if path == "mcmc" else (n > 0),
+              f"{path}: {n} icm_binary launches")
+    icm_times = phase_icm_timing()
     # library_ms: no single PyTorch call computes point location on a
     # subdivision tree plus barycentric weights
     print(json.dumps({"kernels": [{
         "name": "locate_bary", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": sum(n for n, _ in by_path.values()),
-        "launches_by_path": {p: n for p, (n, _) in by_path.items()},
-        "largest_call_by_path": {p: q for p, (_, q) in by_path.items()},
+        "launches": sum(n for n, _, _ in by_path.values()),
+        "launches_by_path": {p: n for p, (n, _, _) in by_path.items()},
+        "largest_call_by_path": {p: q for p, (_, q, _) in by_path.items()},
         "max_abs_err": max_err, "ms": k["ms"], "plain_ms": plain["ms"],
         "bound_ms": roof["bound_ms"], "bound_by": roof["bound_by"],
         "library_ms": None, "ms_spread": k["ms_spread"],
         "queries": n_queries, "largest_call": {
             "queries": largest, "ms": kl["ms"], "plain_ms": plainl["ms"],
-            "bound_ms": roofl["bound_ms"], "bound_by": roofl["bound_by"]}}]}))
+            "bound_ms": roofl["bound_ms"], "bound_by": roofl["bound_by"]}}, {
+        "name": "icm_binary", "route": "cuda",
+        "source": "newmsm_tpu_torch/csrc/icm_binary.cu", "replaces": None,
+        "launches": sum(n for _, _, n in by_path.values()),
+        "launches_by_path": {p: n for p, (_, _, n) in by_path.items()},
+        "bound_by": "the passes x colours chain of cluster barriers",
+        "library_ms": None, **icm_times}]}))
     print(f"chip_smoke: whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

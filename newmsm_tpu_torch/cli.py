@@ -135,16 +135,18 @@ def main(argv=None) -> int:
         return 1
 
     # --metrics: the tracer opens here, so that start-up is a span of the
-    # run (cli.start: imports, the CUDA context, K1's library, inputs)
+    # run (cli.start: imports, the CUDA context, the kernels' libraries,
+    # inputs)
     device = resolve_device(args.device)
     with trace.run(args.metrics or None, device):
         with trace.span("cli.start"):
             from .reg.driver import MeshRegistration
             if device.type == "cuda":
-                from .ops import locate
+                from .ops import icm, locate
                 with trace.mark("cuda.init"):
                     torch.cuda.synchronize(device)
                 locate.kernel_tables(device)
+                icm.library()
             mr = MeshRegistration(device=device)
             if args.verbose:
                 print(f"This is newmsm_tpu_torch on {mr.device}.")

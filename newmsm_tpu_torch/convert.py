@@ -86,9 +86,9 @@ def fusion_tables(src: Any, device=None) -> FusionTables:
     return FusionTables(
         vert_pair=_optional(src, "vert_pair", device),
         vert_pair_end=_optional(src, "vert_pair_end", device),
-        groups=color_group_tensors(np.asarray(_field(src, "vgroups")),
-                                   np.asarray(_field(src, "vgroup_mask")),
-                                   resolve_device(device)),
+        **color_group_tensors(np.asarray(_field(src, "vgroups")),
+                              np.asarray(_field(src, "vgroup_mask")),
+                              resolve_device(device)),
         vert_tri=tensor(_field(src, "vert_tri"), device),
         vert_tri_corner=tensor(_field(src, "vert_tri_corner"), device))
 
@@ -138,8 +138,8 @@ def group_iter_tables(src: Any, device=None) -> GroupIterTables:
     for c in np.nonzero(keep)[0]:
         colors[groups[c][gmask[c]]] = c
     return GroupIterTables(
-        groups=color_group_tensors(groups[keep], gmask[keep],
-                                   resolve_device(device)),
+        **color_group_tensors(groups[keep], gmask[keep],
+                              resolve_device(device)),
         vert_tri=tensor(_field(src, "vert_tri"), device),
         vert_tri_corner=tensor(_field(src, "vert_tri_corner"), device),
         vert_pair=tensor(vert_pair[:, :width], device),

@@ -47,7 +47,7 @@ def bind(lib: ctypes.CDLL):
 @trace.cached()
 def _library() -> ctypes.CDLL:
     from ._build import load
-    lib = load(SOURCE)
+    lib = load(SOURCE, mark="k1.load")
     bind(lib)
     lib.locate_bary_resident_blocks.argtypes = [ctypes.c_int]
     lib.locate_bary_resident_blocks.restype = ctypes.c_int

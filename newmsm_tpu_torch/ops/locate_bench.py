@@ -13,7 +13,11 @@ A time is one CUDA-event pair around `launches` back-to-back launches into
 preallocated outputs, divided by `launches`; `windows` such windows make a
 round; rounds repeat until nvidia-smi has been sampled a few times under
 the load, and the last round is reported (median and spread), so the clock
-ramp of an idle card is not in the number. Needs a CUDA card.
+ramp of an idle card is not in the number. With `hold_cycles` a window's
+first event waits behind a device-side sleep of that many clocks, while
+the host queues the window's launches: a launch that costs the host more
+than the card is then timed on the card, not at the host's rate. Needs a
+CUDA card.
 """
 from __future__ import annotations
 
@@ -94,7 +98,7 @@ class ClockSampler:
 
 def time_launches(launch_once, windows: int = 5, launches: int = 200,
                   warmup: int = 50, load_samples: int = 3,
-                  max_seconds: float = 6.0) -> dict:
+                  max_seconds: float = 6.0, hold_cycles: int = 0) -> dict:
     """Per-launch milliseconds of `launch_once()` on the current device:
     see the module docstring. Returns ms (median of the last round),
     ms_min, ms_max, ms_spread ((max-min)/median), windows_ms, rounds and
@@ -110,6 +114,8 @@ def time_launches(launch_once, windows: int = 5, launches: int = 200,
             for _ in range(windows):
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
+                if hold_cycles:
+                    torch.cuda._sleep(hold_cycles)
                 a.record()
                 for _ in range(launches):
                     launch_once()
@@ -148,7 +154,7 @@ def bench_source(source, res: int, n_queries: int,
     """Build `source` (a name under csrc/ or a path to a .cu with the
     kernel's C interface) with `flags` and time it at (res, n_queries)."""
     dev = torch.device("cuda", torch.cuda.current_device())
-    lib = _build.load(source, flags)
+    lib = _build.load(source, flags, mark="k1.load")
     fn = locate.bind(lib)
     tables = locate.kernel_tables(dev)
     if hasattr(lib, "locate_bary_set_tables"):   # each build has its copy

@@ -19,7 +19,8 @@ there is none):
     exchange a step ('ring') a block goes to the rank that holds both
     subjects at a step. The pair tables are combined by a sum of disjoint
     slots; then every rank runs the binary ICM of reg/optimise/fusion.py on
-    identical tables, multi-start like the pairwise solver.
+    identical tables, multi-start like the pairwise solver (on the card
+    one launch of its kernel, K2, whose sums have a fixed order).
 
 Determinism: every batch has a shape that does not depend on the rank
 count W. The partner search and the triplet tables are the one-rank batch
@@ -87,8 +88,11 @@ class GroupIterTables(NamedTuple):
     """Per-iteration incidence / colouring tables, host-built from the
     partner map. The JAX package pads these to bucket shapes so that one
     compiled program serves every iteration; here they have their true
-    sizes and the colour groups are a tuple of id tensors."""
+    sizes and the colour groups are a tuple of id tensors, and flat for
+    the ICM kernel (fusion.color_tables)."""
     groups: tuple                   # per colour, the (G_c,) node ids
+    color_ids: torch.Tensor         # (S*K,) int32: the groups, flat
+    color_offsets: torch.Tensor     # (C+1,) int32
     vert_tri: torch.Tensor          # (S*K,MT) incident triplet ids, -1 padded
     vert_tri_corner: torch.Tensor   # (S*K,MT)
     vert_pair: torch.Tensor         # (S*K,MP) incident pair ids, -1 padded
@@ -247,8 +251,8 @@ def _iteration_tables(partner, cp_faces, S: int, K: int, dev):
         return torch.from_numpy(a.astype(np.int64)).to(dev)
 
     return GroupIterTables(
-        groups=tuple(put(np.nonzero(colors == c)[0])
-                     for c in range(int(colors.max()) + 1)),
+        **FU.color_tables([np.nonzero(colors == c)[0]
+                           for c in range(int(colors.max()) + 1)], dev),
         vert_tri=put(vert_tri), vert_tri_corner=put(vert_tri_corner),
         vert_pair=put(vert_pair), vert_pair_end=put(vert_pair_end),
         colors=colors)
@@ -332,18 +336,6 @@ def _pad_rows(t, size: int):
     pad = size - t.shape[0]
     return t if pad == 0 else torch.cat([t, t[:1].expand((pad,)
                                                          + t.shape[1:])])
-
-
-class _IcmTables:
-    """Adapter: GroupIterTables -> the FusionTables attribute surface that
-    reg/optimise/fusion._binary_icm consumes."""
-
-    def __init__(self, t: GroupIterTables):
-        self.groups = t.groups
-        self.vert_tri = t.vert_tri
-        self.vert_tri_corner = t.vert_tri_corner
-        self.vert_pair = t.vert_pair
-        self.vert_pair_end = t.vert_pair_end
 
 
 class GroupFusion:
@@ -668,10 +660,8 @@ class GroupFusion:
                                  f"of length {N} required")
             x0 = torch.cat([x0, starts.to(device=self.dev, dtype=torch.int64)])
         zero = torch.zeros(N, dtype=t8.dtype, device=self.dev)
-        xs = FU._binary_icm(x0, zero, zero, t8, self.trip_nodes,
-                            _IcmTables(tables), st.icm_passes, p4, pair_nodes)
-        es = FU.binary_energy(xs, zero, zero, t8, self.trip_nodes, p4,
-                              pair_nodes)
+        xs, es = FU.binary_icm(x0, zero, zero, t8, self.trip_nodes, tables,
+                               st.icm_passes, p4, pair_nodes)
         x = xs[torch.argmin(es)]
         return torch.where(x == 1, torch.full_like(labeling, alpha), labeling)
 

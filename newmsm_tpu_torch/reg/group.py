@@ -35,7 +35,7 @@ from ..core.mesh import Mesh
 from ..ops import resample as rsp
 from ..ops.nearest import build_tables
 from ..ops.unfold import unfold
-from ..ops import locate
+from ..ops import icm, locate
 from ..parallel import group_fusion as GF
 from ..parallel import multihost as mh
 from . import featurespace as fsp
@@ -202,18 +202,19 @@ class GroupMeshRegistration:
         trace.event("outputs", wall_s=round(span.wall_s, 4))
         if trace.active():
             # per rank: the locate kernel's launches in this process, the
-            # most queries of one launch, and the peak device memory (-1 on
-            # the CPU)
+            # most queries of one launch, the peak device memory (-1 on the
+            # CPU) and the ICM kernel's launches in this process
             dev = self.device
             peak = torch.cuda.max_memory_allocated(dev) \
                 if dev.type == "cuda" else -1
             per_rank = self.comm.all_gather(torch.tensor(
-                [[locate.LAUNCHES, locate.LARGEST, peak]], dtype=torch.int64,
-                device=dev))
+                [[locate.LAUNCHES, locate.LARGEST, peak, icm.LAUNCHES]],
+                dtype=torch.int64, device=dev))
             trace.event("ranks", devices=self.comm.world,
                         locate_launches=per_rank[:, 0].tolist(),
                         locate_largest=per_rank[:, 1].tolist(),
-                        peak_device_bytes=per_rank[:, 2].tolist())
+                        peak_device_bytes=per_rank[:, 2].tolist(),
+                        icm_launches=per_rank[:, 3].tolist())
         return self.sph_reg
 
     # ---- level setup -----------------------------------------------------

@@ -7,7 +7,10 @@ triplet tables, and/or 4-combination pair tables) is minimised by exact parallel
 conflict-free vertex colour groups flip together, each flip judged by its
 true local energy delta, from several starts (keep-all, switch-all, the
 greedy-unary start and `n_restarts` random starts); the lowest-energy
-result wins, the earliest start on ties.
+result wins, the earliest start on ties. On the card one launch of the
+hand-written kernel K2 (ops/icm.py, csrc/icm_binary.cu) runs every
+start's descent and energy (`binary_icm`); on the CPU the plain version
+(`_binary_icm`, `binary_energy`) runs.
 
 Random starts: the JAX package draws them from jax.random (threefry), which
 torch cannot reproduce. Here they come from an explicit torch.Generator,
@@ -24,23 +27,40 @@ import numpy as np
 import torch
 
 from ... import resolve_device, trace
+from ...ops import icm as _icm
 from .coloring import color_groups, greedy_color, vertex_coloring_from_faces
 
 
 class FusionTables(NamedTuple):
     """Static host-built index tables for the fusion solver."""
     groups: tuple                  # per colour, the (G_c,) vertex ids
+    color_ids: torch.Tensor        # (sum G_c,) int32: the groups, flat
+    color_offsets: torch.Tensor    # (C+1,) int32: where each group starts
     vert_tri: torch.Tensor         # (K,MT) incident triplet ids, -1 padded
     vert_tri_corner: torch.Tensor  # (K,MT) own corner position in triplet
     vert_pair: Optional[torch.Tensor] = None      # (K,MP) incident pair ids
     vert_pair_end: Optional[torch.Tensor] = None  # (K,MP) own end (0/1)
 
 
+def color_tables(groups, device) -> dict:
+    """Per-colour vertex ids (numpy) -> the colour fields of the fusion
+    tables: `groups`, one int64 id tensor a colour (the form the plain
+    ICM steps through), and `color_ids` / `color_offsets`, their int32
+    concatenation and (C+1,) start offsets (the form K2 reads)."""
+    groups = [np.asarray(g, np.int64) for g in groups]
+    flat = np.concatenate(groups) if groups else np.zeros(0, np.int64)
+    offsets = np.cumsum([0] + [len(g) for g in groups])
+    return dict(groups=tuple(torch.from_numpy(g).to(device) for g in groups),
+                color_ids=torch.from_numpy(flat.astype(np.int32)).to(device),
+                color_offsets=torch.from_numpy(
+                    offsets.astype(np.int32)).to(device))
+
+
 def color_group_tensors(groups: np.ndarray, mask: np.ndarray,
-                        device) -> tuple:
-    """(C,G) padded colour groups + mask -> per-colour id tensors."""
-    return tuple(torch.from_numpy(g[m].astype(np.int64)).to(device)
-                 for g, m in zip(np.asarray(groups), np.asarray(mask)))
+                        device) -> dict:
+    """(C,G) padded colour groups + mask -> `color_tables`."""
+    return color_tables([g[m] for g, m in zip(np.asarray(groups),
+                                              np.asarray(mask))], device)
 
 
 def _incidence_table(members: np.ndarray, nverts: int):
@@ -86,7 +106,7 @@ def build_fusion_tables(triplets: np.ndarray, nverts: int,
         vp, vpe = (torch.from_numpy(a).to(dev)
                    for a in _incidence_table(pairs, nverts))
     return FusionTables(
-        groups=color_group_tensors(groups, mask, dev),
+        **color_group_tensors(groups, mask, dev),
         vert_tri=torch.from_numpy(vert_tri).to(dev),
         vert_tri_corner=torch.from_numpy(vert_corner).to(dev),
         vert_pair=vp, vert_pair_end=vpe)
@@ -193,6 +213,24 @@ def _binary_icm(x, u0, u1, t8, triplets, tables: FusionTables,
     return x
 
 
+def binary_icm(x, u0, u1, t8, triplets, tables, icm_passes: int, p4=None,
+               pairs=None):
+    """`_binary_icm` from the starts x (S,K), overwritten, and each
+    result's `binary_energy`: (xs, es (S,)). CPU tensors run the plain
+    version; CUDA tensors one launch of K2 (ops/icm.py), which needs the
+    flat colour table of `tables` and raises on what it does not take.
+    Under tracing, an `icm.twin` or `icm.kernel` count."""
+    if x.device.type == "cpu":
+        trace.count("icm.twin")
+        xs = _binary_icm(x, u0, u1, t8, triplets, tables, icm_passes, p4,
+                         pairs)
+        return xs, binary_energy(xs, u0, u1, t8, triplets, p4, pairs)
+    out = _icm.icm_binary(x, u0, u1, t8, triplets, tables, icm_passes, p4,
+                          pairs)
+    trace.count("icm.kernel")
+    return out
+
+
 def fusion_binary_solve(labeling, alpha: int, unary, triplets,
                         tables: FusionTables, triplet_combo_fn: Callable,
                         icm_passes: int = 4, n_restarts: int = 2,
@@ -216,8 +254,8 @@ def fusion_binary_solve(labeling, alpha: int, unary, triplets,
                              f"starts of length {K} required")
         x0 = torch.cat([x0, starts.to(device=unary.device,
                                       dtype=torch.int64)])
-    xs = _binary_icm(x0, u0, u1, t8, triplets, tables, icm_passes, p4, pairs)
-    es = binary_energy(xs, u0, u1, t8, triplets, p4, pairs)
+    xs, es = binary_icm(x0, u0, u1, t8, triplets, tables, icm_passes, p4,
+                        pairs)
     # the keep-all start never increases the energy; prefer the earliest
     # start on ties (argmin returns the first match) so sweeps stay monotone
     return xs[torch.argmin(es)]

@@ -6,7 +6,9 @@ groupwise path's fusion tables and label maps on the card against the CPU,
 its subject-sharded fusion call on the card (a 1-rank NCCL group, two
 gloo ranks sharing the card) against the one-device call, and run_cgmsm
 over NCCL ranks, a card each (where there are two or more), against one
-rank. They skip without one. The machine with the card has no JAX, so
+rank; and the binary-ICM kernel K2 against its plain version in the three
+forms its callers pass, on synthetic and on recorded tables. They skip
+without one. The machine with the card has no JAX, so
 this file imports neither JAX nor the JAX package, and is run there
 without tests/conftest.py (which imports JAX):
 
@@ -420,3 +422,195 @@ def test_cgmsm_over_nccl_ranks_a_card_each_is_the_one_rank_state(
         for got, exp in zip(out["bcast"], gathered[-2:], strict=True):
             assert got.dtype == exp.dtype
             np.testing.assert_array_equal(got, exp)
+
+
+# ------------------------------------------------------------------ K2 (ICM)
+
+# (form, grid level, subjects): the pairwise grids ico-2/3/4 (K = 162,
+# 642, 2,562) in the triplet and pair forms, the group's N for S = 8 at
+# CP ico-4 (20,496 nodes) and ico-5 (81,936: x above 48 KB of shared
+# memory), and a triplet move at ico-7 (163,842: x in device memory)
+_ICM_CASES = [("t8", 2, 1), ("t8", 3, 1), ("t8", 4, 1), ("p4", 2, 1),
+              ("p4", 3, 1), ("p4", 4, 1), ("group", 4, 8), ("group", 5, 8),
+              ("t8", 7, 1)]
+
+
+def _icm_problem(form, res, S, dev, integer, seed=0):
+    from newmsm_tpu_torch.ops import icm_bench
+    if form == "group":
+        return icm_bench.group_problem(S, res, dev, seed, integer)
+    return icm_bench.pairwise_problem(res, form, dev, seed, integer)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,res,S", _ICM_CASES)
+def test_icm_kernel_is_the_twin_bit_for_bit_on_integer_tables(cuda, form,
+                                                              res, S):
+    """Tables of small integers, where every float32 sum is exact: the
+    kernel's descents and energies equal the plain version's bit for bit
+    (padded incidence rows included: the ico grids' degree-5 vertices and
+    the group's uneven pair incidence), and two launches repeat each
+    other."""
+    from newmsm_tpu_torch.ops import icm, icm_bench
+    p = _icm_problem(form, res, S, cuda, integer=True)
+    assert (p[5].vert_tri < 0).any() or form == "p4"
+    before = icm.LAUNCHES
+    got = icm_bench.compare(p)
+    assert icm.LAUNCHES == before + 2
+    assert got["xs_equal"] and got["es_equal"], got
+    assert got["repeats"], got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,res,S", _ICM_CASES)
+def test_icm_kernel_repeats_itself_on_real_valued_tables(cuda, form, res, S):
+    """Gaussian tables: two launches on the same inputs give the same bits
+    (no atomics), and the kernel's energies are those of its own
+    descents (binary_energy of its xs, to 1e-5 relative)."""
+    from newmsm_tpu_torch.ops import icm_bench
+    from newmsm_tpu_torch.reg.optimise import fusion as FU
+    p = _icm_problem(form, res, S, cuda, integer=False, seed=1)
+    x, u0, u1, t8, trip, _, _, p4, pairs = p
+    assert icm_bench.compare(p)["repeats"]
+    xs, es = icm_bench.kernel(p)
+    want = FU.binary_energy(xs, u0, u1, t8, trip, p4, pairs).double()
+    torch.testing.assert_close(es.double(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_icm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    """Wrong dtype, a table on another device, a non-contiguous input: the
+    wrapper raises before any launch. A launch the card refuses (a grid of
+    zero starts) raises with its CUDA error."""
+    from newmsm_tpu_torch.ops import icm
+    x, u0, u1, t8, trip, tables, passes, p4, pairs = _icm_problem(
+        "t8", 2, 1, cuda, integer=True)
+    before = icm.LAUNCHES
+    with pytest.raises(TypeError):
+        icm.icm_binary(x, u0.double(), u1, t8, trip, tables, passes)
+    with pytest.raises(ValueError):
+        icm.icm_binary(x, u0.cpu(), u1, t8, trip, tables, passes)
+    with pytest.raises(ValueError):
+        icm.icm_binary(x, u0, u1, t8.t().contiguous().t(), trip, tables,
+                       passes)
+    assert icm.LAUNCHES == before
+    es = torch.empty(0, dtype=torch.float32, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        icm.launch(x[:0], es, u0, u1, t8, trip, tables, passes)
+
+
+def _recorded_moves(monkeypatch):
+    """Every binary_icm call of a run, checked as it happens: the kernel's
+    chosen start (first minimum) against the plain version's from the
+    same starts and tables, on the card."""
+    from newmsm_tpu_torch.ops import icm_bench
+    from newmsm_tpu_torch.reg.optimise import fusion as FU
+    moves = []
+    orig = FU.binary_icm
+
+    def spy(x, *rest):
+        problem = (x.clone(), *rest)
+        xs, es = orig(x, *rest)
+        xt, et = icm_bench.twin(problem)
+        ik, it = int(torch.argmin(es)), int(torch.argmin(et))
+        e_k, e_t = float(es[ik]), float(et[it])
+        moves.append({"nodes": int(x.shape[1]),
+                      "same_x": bool(torch.equal(xs[ik], xt[it])),
+                      "rel": abs(e_k - e_t) / max(abs(e_t), 1e-30)})
+        return xs, es
+    monkeypatch.setattr(FU, "binary_icm", spy)
+    return moves
+
+
+def _assert_moves_agree(moves, nodes):
+    """The chosen x equals the plain version's on at least 99 % of the
+    moves at `nodes`, the chosen energy within 1e-5 relative on every
+    move."""
+    last = [m for m in moves if m["nodes"] == nodes]
+    assert last, sorted({m["nodes"] for m in moves})
+    same = np.mean([m["same_x"] for m in last])
+    worst = max(m["rel"] for m in moves)
+    assert same >= 0.99, (same, len(last))
+    assert worst <= 1e-5, worst
+
+
+_ICO4_STRAIN = """\
+--simval=2,2
+--sigma_in=2,1
+--sigma_ref=2,1
+--lambda=0.2,0.2
+--it=1,2
+--opt=DISCRETE,DISCRETE
+--CPgrid=3,4
+--SGgrid=5,6
+--datagrid=5,6
+--regoption=3
+--regexp=2
+--dopt=HOCR
+--VN
+--k_exponent=2
+--bulkmod=1.6
+--shearmod=0.4
+--rescaleL
+"""
+
+
+@pytest.mark.cuda
+def test_icm_kernel_on_the_moves_of_a_real_ico4_strain_level(
+        cuda, tmp_path, monkeypatch):
+    """register_dataset on an ico-6 synthetic subject, the strain recipe's
+    last two discrete levels (CP ico-3, ico-4): every fusion move's kernel
+    result against the plain version's on the move's own tables."""
+    from newmsm_tpu_torch.eval.synth import synth_cohort
+    from newmsm_tpu_torch.ops import icm
+    from newmsm_tpu_torch.pipelines.cohort import register_dataset
+    moves = _recorded_moves(monkeypatch)
+    conf = tmp_path / "strain.conf"
+    conf.write_text(_ICO4_STRAIN)
+    _, datasets, template_data = synth_cohort(6, 1, seed=0)
+    before = icm.LAUNCHES
+    res = register_dataset(["s"], Mesh.from_icosphere(6), template_data,
+                           str(conf), {"s": datasets[0]},
+                           outdir=str(tmp_path) + "/", device=cuda)
+    assert not res.failed, res.failed
+    assert icm.LAUNCHES - before == len(moves) > 0
+    _assert_moves_agree(moves, 2562)
+
+
+_GROUP_S8 = """\
+--simval=2,2,2
+--sigma_in=0,0,0
+--sigma_ref=0,0,0
+--lambda=0.2,0.2,0.2
+--it=1,1,1
+--opt=DISCRETE,DISCRETE,DISCRETE
+--CPgrid=2,3,4
+--SGgrid=4,5,6
+--datagrid=4,5,6
+--regoption=3
+--regexp=2
+--dopt=HOCR
+--k_exponent=2
+--bulkmod=1.6
+--shearmod=0.4
+"""
+
+
+@pytest.mark.cuda
+def test_icm_kernel_on_the_alpha_steps_of_a_real_group_level(
+        cuda, tmp_path, monkeypatch):
+    """run_gmsm on 8 ico-6 synthetic subjects, the gMSM tutorial recipe
+    at one iteration a level: every alpha step's kernel result against
+    the plain version's on the step's own tables (N = 8 x 2,562 at the
+    last level)."""
+    from newmsm_tpu_torch.eval.synth import synth_cohort
+    from newmsm_tpu_torch.pipelines.gmsm import run_gmsm
+    moves = _recorded_moves(monkeypatch)
+    conf = tmp_path / "group.conf"
+    conf.write_text(_GROUP_S8)
+    meshes, datasets, _ = synth_cohort(6, 8, seed=0)
+    template = Mesh.from_icosphere(6)
+    template.true_rescale(100.0)
+    monkeypatch.chdir(tmp_path)
+    run_gmsm(meshes, datasets, template, str(conf), device=cuda)
+    _assert_moves_agree(moves, 8 * 2562)

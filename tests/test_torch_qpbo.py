@@ -7,7 +7,7 @@ of the pairwise driver's loop at K = 162 (CP ico-2 on an ico-4 sphere, 2
 iterations x 2 sweeps x every label), with the triplet strain tables
 (regoption 3, `binary_fast`) and with the pair tables (regoption 1); and
 every alpha step of one group fusion sweep (3 subjects, the group
-`_IcmTables` over 126 nodes with their pair blocks). The tables (u0, u1,
+`GroupIterTables` over 126 nodes with their pair blocks). The tables (u0, u1,
 t8, p4) are the port's `binary_move_tables` output, or the group's
 `build_tables_for`, fed to the oracle in float64.
 
