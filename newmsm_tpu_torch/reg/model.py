@@ -17,7 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, trace
 from ..core.mesh import Mesh
 from ..ops import resample as rsp
 from ..ops.nearest import build_tables
@@ -119,10 +119,16 @@ class PairwiseModel:
         self.scale = 1.0
         self.labeling = np.zeros(K, np.int64)
         self._warned_overflow = False
+        self._warned_face_overflow = False
         self.anat: "C.AnatTables | None" = None   # set by driver for regmode 5
+        # masked-in face-patch slots of this iteration (traced runs only)
+        self.face_valid = 0
         if cfg.triclique:
             density = source.nvertices / trip.shape[0]
             self.fmax = int(min(source.nvertices, max(16, 6 * density)))
+            trace.event("triclique.shape", D=int(feat_ref.shape[0]),
+                        res=int(self.tables.target_tables.pristine_res),
+                        fmax=self.fmax, T=int(trip.shape[0]))
         else:
             self.fmax = 0
 
@@ -207,10 +213,12 @@ class PairwiseModel:
                                      self.cp_grid.adjacency[2], dev)
             fidx, fmask, foverflow = C.build_face_patches(src, cp_search,
                                                           self.fmax)
-            if not self._warned_overflow and bool(foverflow.any()):
+            if not self._warned_face_overflow and bool(foverflow.any()):
                 print("warning: face patch capacity overflow; increase fmax")
-                self._warned_overflow = True
+                self._warned_face_overflow = True
             s["face_idx"], s["face_mask"] = fidx, fmask
+            if trace.active():
+                self.face_valid = int(trace.read(fmask.sum()))
         self.iter += 1
         return s
 
@@ -250,11 +258,15 @@ class PairwiseModel:
 
         if cfg.triclique:
             def fn(la, lb, lc):
-                lik = C.triclique_likelihood(
-                    cp, rl, self.tables, s["face_idx"], s["face_mask"],
-                    s["src"], s["abs_weights"], s["cfweights"], la, lb, lc,
-                    cfg.simval, cfg.percentile,
-                    multivariate=cfg.multivariate and not cfg.patchwise)
+                with trace.span("triclique"):
+                    lik = C.triclique_likelihood(
+                        cp, rl, self.tables, s["face_idx"], s["face_mask"],
+                        s["src"], s["abs_weights"], s["cfweights"], la, lb,
+                        lc, cfg.simval, cfg.percentile,
+                        multivariate=cfg.multivariate and not cfg.patchwise)
+                    # what K1 is sent, and the slots that carry data
+                    trace.count("queries", la.numel() * self.fmax)
+                    trace.count("valid", la.shape[1] * self.face_valid)
                 return lik + regulariser(la, lb, lc)
             return fn
         if cfg.regmode not in (2, 3):
