@@ -8,9 +8,10 @@ no result line:
 
   1. device   require CUDA; print the card's name and power limit
               (nvidia-smi) and the torch / CUDA versions;
-  2. build    compile the kernels (csrc/locate_bary.cu, K1, and
-              csrc/icm_binary.cu, K2) with nvcc; print their ptxas lines
-              (registers, spills) and K1's resident grid;
+  2. build    compile the kernels (csrc/locate_bary.cu, K1,
+              csrc/icm_binary.cu, K2, and csrc/rigid_cost.cu, K3) with
+              nvcc; print their ptxas lines (registers, spills) and K1's
+              resident grid;
   3. kernel   K1 against its plain PyTorch version on the card:
               2^20 random directions plus every vertex of ico-res, res in
               {0,2,4,6}; row sums, reconstructed positions, vertex mass and
@@ -23,6 +24,10 @@ no result line:
               pair, group) at ico-2/3/4 and the group's N for S = 8:
               bit for bit on small-integer tables, and two launches
               equal on Gaussian tables;
+              then K3 against its plain version (reg/rigid.py
+              rigid_terms_twin) at AFFINE's ico-5 shape and at the edges of
+              its arithmetic: each source's jp and the total within
+              ops/rigid_bench.py's tolerances, two calls bit for bit;
   4. main     the pairwise strain-registration path through the CLI
               (config_standard_MSM_strain, --it cut to 10,3,3,3) on an ico-6
               synthetic subject; checks outputs, folds, the sulc CC gain and
@@ -78,10 +83,13 @@ no result line:
               issue-slot bound from the SASS instruction count; then K2
               and its plain version a move at the ico-4 strain shape and
               the gmsm_s8 last-level shape, beside the chain of passes x
-              colours block barriers.
+              colours block barriers; then K3 and its plain version a cost
+              evaluation at ico-5 (D = 2 cosine, D = 10 SSD), beside the
+              bound of the call's gates and neighbourhood pairs.
 
 Phases 4 to 9 and phase 11's one-rank run each set the kernel's launch
-count to 0 before the call and read it after; the ranks of phases 10 and 11
+count to 0 before the call and read it after (K3's too in phases 4 to 8:
+one launch a cost evaluation of AFFINE, none on the paths without it); the ranks of phases 10 and 11
 are fresh processes, whose counts start at 0 and are read from each rank. A path that never launched the kernel,
 on any rank, fails the run, and so does a failing rank.
 The line before the last is a JSON summary of the kernels; the last line
@@ -286,12 +294,13 @@ def phase_device(torch):
 
 
 def phase_build():
-    from newmsm_tpu_torch.ops import _build, icm, locate
+    from newmsm_tpu_torch.ops import _build, icm, locate, rigid
     t0 = time.perf_counter()
     locate._library()
     icm.library()
-    print(f"build: {locate.SOURCE} and {icm.SOURCE} ready (nvcc at first "
-          f"use) in {time.perf_counter() - t0:.2f} s")
+    rigid.library()
+    print(f"build: {locate.SOURCE}, {icm.SOURCE} and {rigid.SOURCE} ready "
+          f"(nvcc at first use) in {time.perf_counter() - t0:.2f} s")
     name = f"{locate.KERNEL}ILi{MAIN_RES}E"
     print(f"build: ptxas, res {MAIN_RES} kernel: "
           f"{_build.ptxas_usage(locate.SOURCE, name)}")
@@ -301,6 +310,9 @@ def phase_build():
                        ("t8 + p4, x in device memory", "ILb1ELb1ELb0E")):
         print(f"build: ptxas, K2 {form}: "
               f"{_build.ptxas_usage(icm.SOURCE, icm.KERNEL + args)}")
+    for name in (rigid.KERNEL, "rigid_combine_kernel"):
+        print(f"build: ptxas, K3 {name}: "
+              f"{_build.ptxas_usage(rigid.SOURCE, name)}")
     print(f"build: grid capped at {locate.resident_blocks(MAIN_RES, 'cuda')} "
           f"resident blocks (occupancy x SMs)")
 
@@ -390,6 +402,7 @@ def phase_kernel(torch):
     check(mism <= 1e-4 * BIG_CALL_QUERIES,
           f"off-sphere: {mism} face-id mismatches")
     phase_icm_kernel()
+    phase_rigid_kernel()
     return max(worst_pos, pos_err)
 
 
@@ -424,6 +437,54 @@ def phase_icm_kernel():
               f"K2 {form} ico-{res}: differs from its twin on exact tables")
         check(exact["repeats"] and real["repeats"],
               f"K2 {form} ico-{res}: two launches differ")
+
+
+# K3's cases: (control-grid level, channels, simval, problem options), as
+# tests/test_torch_cuda.py holds them
+RIGID_CASES = ((5, 2, 2, {}), (5, 10, 1, {}), (5, 10, 2, {}),
+               (5, 2, 2, {"n_src": 2 * 2048 + 2}), (5, 2, 2, {"degrees": 0.0}),
+               (4, 2, 2, {"northern_targets": True}),
+               (4, 3, 2, {"zero_columns": True}),
+               (4, 3, 1, {"zero_columns": True}))
+
+
+def phase_rigid_kernel():
+    """K3 against its plain version at AFFINE's shape and at the edges of
+    its arithmetic (ops/rigid_bench.py's tolerances), two calls bit for
+    bit."""
+    from newmsm_tpu_torch.ops import rigid_bench as rb
+    for res, channels, simval, opts in RIGID_CASES:
+        got = rb.compare(rb.problem(res, channels, simval, "cuda", **opts))
+        print(f"K3 ico-{res} D={channels} simval {simval} {opts}: total "
+              f"{got['total_kernel']:.6f} / twin {got['total_twin']:.6f} "
+              f"(gap {got['total_gap']:.2e} of sum |jp|), jp gap "
+              f"{got['jp_gap']:.2e}, gate ties {got['ties']} of "
+              f"{got['sources']}, unexplained {got['unexplained']}, empty {got['empty_kernel']} / "
+              f"{got['empty_twin']}; repeats {got['repeats']}")
+        check(got["ok"], f"K3 ico-{res} D={channels} simval {simval} {opts}: "
+                         f"differs from its twin: {got}")
+        check(got["empty_kernel"] == got["empty_twin"],
+              f"K3 {opts}: empty neighbourhoods differ from its twin's")
+
+
+def phase_rigid_timing():
+    """K3 a cost evaluation at AFFINE's ico-5 shapes: the card's time of
+    a call, a whole evaluation at the host's pace (rotation and K3), and
+    the plain version, beside the bound (ops/rigid_bench.py)."""
+    from newmsm_tpu_torch.ops import rigid_bench as rb
+    out = {}
+    for name, make in rb.SHAPES.items():
+        out[name] = t = rb.time_cost(make("cuda"))
+        print(f"K3 time {name} (N {t['sources']}, Nt {t['targets']}, D "
+              f"{t['channels']}): kernel {t['kernel_ms']:.4f} ms a call "
+              f"(ms_spread {t['kernel_ms_spread']:.3f}), a whole evaluation "
+              f"at the host's pace {t['evaluation_ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.3f} ms; bound {t['bound_ms']:.5f} ms by "
+              f"{t['bound_by']} ({t['gates']} gates, {t['pairs']} pairs "
+              f"through the gate, {t['ops']} operations, {t['bytes']} "
+              f"bytes), share {t['share']:.3f}; clock samples "
+              f"{t['clock_samples_mhz_w']}")
+    return out
 
 
 def phase_timing(torch, n_queries: int, res: int):
@@ -527,6 +588,25 @@ def span_total(events, name) -> int:
     return total
 
 
+# K3's launches by path (run_path)
+RIGID_BY_PATH = {}
+
+
+def check_rigid(tag, launches, events):
+    """K3's launches of one path against its metrics file: one launch, one
+    `rigid.kernel` count and one `cost_evals` count a cost evaluation, no
+    `rigid.twin`."""
+    evals = span_total(events, "cost_evals")
+    kernel = span_total(events, "rigid.kernel")
+    twin = span_total(events, "rigid.twin")
+    print(f"{tag}: rigid_cost launches {launches}, cost_evals {evals}, "
+          f"rigid.kernel counts {kernel}, rigid.twin counts {twin}")
+    check(launches == evals == kernel and twin == 0,
+          f"{tag}: K3 launches {launches} / rigid.kernel {kernel} / "
+          f"rigid.twin {twin} do not match the {evals} cost evaluations")
+    RIGID_BY_PATH[tag] = launches
+
+
 def check_icm(tag, launches, events, move):
     """K2's launches of one path (by rank, or one number) against the
     run's metrics file: each rank launched once per `move` mark (each rank
@@ -552,7 +632,7 @@ def run_path(torch, workdir, tag, inputs, config_text, warm_runs=0,
     queries in one K1 launch, K2 launches), warm events of the last warm
     run or None)."""
     from newmsm_tpu_torch import cli
-    from newmsm_tpu_torch.ops import icm, locate
+    from newmsm_tpu_torch.ops import icm, locate, rigid
 
     conf = os.path.join(workdir, f"{tag}.conf")
     with open(conf, "w") as f:
@@ -569,14 +649,16 @@ def run_path(torch, workdir, tag, inputs, config_text, warm_runs=0,
         return wall, [json.loads(line) for line in open(metrics)]
 
     out = os.path.join(workdir, f"{tag}_out_")
-    locate.LAUNCHES = locate.LARGEST = icm.LAUNCHES = 0
+    locate.LAUNCHES = locate.LARGEST = icm.LAUNCHES = rigid.LAUNCHES = 0
     wall, events = run_cli(out)
     launches = (locate.LAUNCHES, locate.LARGEST, icm.LAUNCHES)
+    rigid_launches = rigid.LAUNCHES
     print(f"{tag}: cli wall {wall:.2f} s, locate_bary launches "
           f"{launches[0]}, the largest of {launches[1]} queries")
     check(launches[0] > 0,
           f"{tag}: the path never launched the locate kernel")
     check_icm(tag, launches[2], events, "fusion.move")
+    check_rigid(tag, rigid_launches, events)
     warm_events = None
     if warm_runs:
         warm = []
@@ -1445,6 +1527,11 @@ def main(argv=None) -> int:
         check((n == 0) if path == "mcmc" else (n > 0),
               f"{path}: {n} icm_binary launches")
     icm_times = phase_icm_timing()
+    # K3 runs on the paths with an AFFINE level, and on no other
+    for path, n in RIGID_BY_PATH.items():
+        check((n > 0) == (path in ("main", "msmpair")),
+              f"{path}: {n} rigid_cost launches")
+    rigid_times = phase_rigid_timing()
     # library_ms: no single PyTorch call computes point location on a
     # subdivision tree plus barycentric weights
     print(json.dumps({"kernels": [{
@@ -1464,7 +1551,12 @@ def main(argv=None) -> int:
         "launches": sum(n for _, _, n in by_path.values()),
         "launches_by_path": {p: n for p, (_, _, n) in by_path.items()},
         "bound_by": "the passes x colours chain of cluster barriers",
-        "library_ms": None, **icm_times}]}))
+        "library_ms": None, **icm_times}, {
+        "name": "rigid_cost", "route": "cuda",
+        "source": "newmsm_tpu_torch/csrc/rigid_cost.cu", "replaces": None,
+        "launches": sum(RIGID_BY_PATH.values()),
+        "launches_by_path": RIGID_BY_PATH, "library_ms": None,
+        **rigid_times}]}))
     print(f"chip_smoke: whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

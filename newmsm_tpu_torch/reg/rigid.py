@@ -2,12 +2,15 @@
 rigid_costfunction.cpp). Port of newmsm_tpu/reg/rigid.py.
 
 The cost is a tangent-plane Gaussian-weighted similarity between each
-rotated source vertex and its angular neighbourhood on the target, one
-masked dense product per chunk of source vertices; the annealed
+rotated source vertex and its angular neighbourhood on the target. On the
+card one call of the hand-written kernel K3 (ops/rigid.py,
+csrc/rigid_cost.cu) computes it; on the CPU its plain version (the twin)
+does, one masked dense product per chunk of source vertices. The annealed
 finite-difference ascent over 3 Euler angles is the reference's loop, with
 the JAX package's lax.while_loop written as a Python loop (one host sync
 per iteration, to read the `done` flag). Under tracing each gradient step
-is an `affine.step` mark and each cost evaluation a `cost_evals` count.
+is an `affine.step` mark, and each cost evaluation a `cost_evals` count and
+a `rigid.kernel` (K3) or `rigid.twin` count.
 """
 from __future__ import annotations
 
@@ -17,20 +20,50 @@ import torch
 from .. import RAD, resolve_device, trace
 from ..core import spherical as sph
 from ..core.mesh import Mesh
+from ..ops import rigid as _rigid
 
 
 def rigid_cost(angles, src_coords, src_data_c, tgt_coords, tgt_data_c,
-               cos_ang: float, min_sigma: float, simval: int,
-               chunk: int = 2048):
+               cos_ang: float, min_sigma: float, simval: int):
     """Total similarity of the rotated source against the target (0-d).
     angles (3,); src_data_c/tgt_data_c: (D,N) mean-removed feature columns;
-    cos_ang: neighbourhood gate cos(2*asin(4*MVD/(2*RAD)))."""
+    cos_ang: neighbourhood gate cos(2*asin(4*MVD/(2*RAD))). CPU tensors run
+    the twin (`rigid_cost_twin`); any other device rotates the source and
+    launches K3 (`ops.rigid.rigid_terms`), which raises on what it does not
+    take."""
+    if src_coords.device.type == "cpu":
+        trace.count("rigid.twin")
+        return rigid_cost_twin(angles, src_coords, src_data_c, tgt_coords,
+                               tgt_data_c, cos_ang, min_sigma, simval)
     rot = sph.apply_euler(src_coords, angles[0], angles[1], angles[2])
+    total, _ = _rigid.rigid_terms(rot, src_data_c, tgt_coords, tgt_data_c,
+                                  cos_ang, min_sigma, simval)
+    trace.count("rigid.kernel")
+    return total
+
+
+def rigid_cost_twin(angles, src_coords, src_data_c, tgt_coords, tgt_data_c,
+                    cos_ang: float, min_sigma: float, simval: int,
+                    chunk: int = 2048):
+    """`rigid_cost` in plain PyTorch ops, on any device: the rotation, then
+    the sum of `rigid_terms_twin`'s chunks in chunk order."""
+    rot = sph.apply_euler(src_coords, angles[0], angles[1], angles[2])
+    total = torch.zeros((), dtype=src_coords.dtype, device=src_coords.device)
+    for jp in rigid_terms_twin(rot, src_data_c, tgt_coords, tgt_data_c,
+                               cos_ang, min_sigma, simval, chunk):
+        total = total + jp.sum()
+    return total
+
+
+def rigid_terms_twin(rot, src_data_c, tgt_coords, tgt_data_c,
+                     cos_ang: float, min_sigma: float, simval: int,
+                     chunk: int = 2048):
+    """The plain version of K3: each rotated source's weighted neighbourhood
+    similarity jp, yielded a chunk of `chunk` sources at a time."""
     tgt_unit = tgt_coords / torch.linalg.norm(tgt_coords, dim=1, keepdim=True)
     src_norm = torch.linalg.norm(src_data_c, dim=0)
     tgt_norm = torch.linalg.norm(tgt_data_c, dim=0)
 
-    total = torch.zeros((), dtype=src_coords.dtype, device=src_coords.device)
     for s in range(0, rot.shape[0], chunk):
         rc = rot[s:s + chunk]
         sn = src_norm[s:s + chunk]
@@ -60,10 +93,8 @@ def rigid_cost(angles, src_coords, src_data_c, tgt_coords, tgt_data_c,
             simm = torch.where(denom > 0, ab / torch.where(
                 denom > 0, denom, torch.ones_like(denom)), torch.zeros_like(ab))
         wsum = w.sum(1)
-        jp = torch.where(wsum > 0, (w * simm).sum(1) / torch.where(
+        yield torch.where(wsum > 0, (w * simm).sum(1) / torch.where(
             wsum > 0, wsum, torch.ones_like(wsum)), torch.zeros_like(wsum))
-        total = total + jp.sum()
-    return total
 
 
 def _center_columns(data: np.ndarray) -> np.ndarray:

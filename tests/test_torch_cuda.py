@@ -6,8 +6,10 @@ groupwise path's fusion tables and label maps on the card against the CPU,
 its subject-sharded fusion call on the card (a 1-rank NCCL group, two
 gloo ranks sharing the card) against the one-device call, and run_cgmsm
 over NCCL ranks, a card each (where there are two or more), against one
-rank; and the binary-ICM kernel K2 against its plain version in the three
-forms its callers pass, on synthetic and on recorded tables. They skip
+rank; the binary-ICM kernel K2 against its plain version in the three
+forms its callers pass, on synthetic and on recorded tables; and the
+rigid-cost kernel K3 against its plain version at AFFINE's shapes and at
+the edges of its arithmetic, alone and inside rigid_align. They skip
 without one. The machine with the card has no JAX, so
 this file imports neither JAX nor the JAX package, and is run there
 without tests/conftest.py (which imports JAX):
@@ -614,3 +616,113 @@ def test_icm_kernel_on_the_alpha_steps_of_a_real_group_level(
     monkeypatch.chdir(tmp_path)
     run_gmsm(meshes, datasets, template, str(conf), device=cuda)
     _assert_moves_agree(moves, 8 * 2562)
+
+
+# K3 (csrc/rigid_cost.cu) against its plain version, reg/rigid.py::
+# rigid_terms_twin: (res, channels, simval, problem options). AFFINE's
+# shape (ico-5, D = 2, the cosine), D = 10 in both similarities, N != Nt
+# with the plain version's ragged last chunk, every source on a target
+# (dist2 == 0 left out), empty neighbourhoods (wsum == 0), zero data
+# columns (cosine denominator 0). Tolerances: ops/rigid_bench.py (JP_RTOL,
+# TOTAL_RTOL: the order of the float32 sums; a gap beyond them only where
+# a target within GATE_ULPS of the gate, moved across it, explains it).
+_RIGID_CASES = [
+    (5, 2, 2, {}), (5, 10, 1, {}), (5, 10, 2, {}),
+    (5, 2, 2, {"n_src": 2 * 2048 + 2}), (5, 2, 2, {"degrees": 0.0}),
+    (4, 2, 2, {"northern_targets": True}), (4, 3, 2, {"zero_columns": True}),
+    (4, 3, 1, {"zero_columns": True}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,channels,simval,opts", _RIGID_CASES)
+def test_rigid_kernel_matches_its_twin_and_repeats_its_bits(cuda, res,
+                                                            channels, simval,
+                                                            opts):
+    """Each source's jp and the total within the stated tolerances of the
+    plain version on the card; two calls give the same bits; one launch a
+    call."""
+    from newmsm_tpu_torch.ops import rigid, rigid_bench
+    p = rigid_bench.problem(res, channels, simval, cuda, **opts)
+    before = rigid.LAUNCHES
+    got = rigid_bench.compare(p)
+    assert rigid.LAUNCHES == before + 2
+    assert got["repeats"], got
+    assert got["unexplained"] == 0, got
+    assert got["total_gap"] <= rigid_bench.TOTAL_RTOL, got
+    assert got["ok"], got
+    if opts.get("northern_targets"):
+        assert got["empty_kernel"] == got["empty_twin"] > 0, got
+
+
+@pytest.mark.cuda
+def test_rigid_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    """Wrong dtype, a tensor on another device, a non-contiguous input,
+    columns that do not match, another D: the wrapper raises before any
+    launch. A launch the card refuses (no sources: a grid of zero blocks)
+    raises with its CUDA error."""
+    from newmsm_tpu_torch.ops import rigid, rigid_bench
+    rot, src, tgt, tdat, cos_ang, sigma, simval = rigid_bench.problem(
+        3, 2, 2, cuda)
+    rest = (cos_ang, sigma, simval)
+    before = rigid.LAUNCHES
+    with pytest.raises(TypeError):
+        rigid.rigid_terms(rot.double(), src, tgt, tdat, *rest)
+    with pytest.raises(ValueError):
+        rigid.rigid_terms(rot, src.cpu(), tgt, tdat, *rest)
+    with pytest.raises(ValueError):
+        rigid.rigid_terms(rot, src.t().contiguous().t(), tgt, tdat, *rest)
+    with pytest.raises(ValueError):
+        rigid.rigid_terms(rot, src[:, :-1].contiguous(), tgt, tdat, *rest)
+    with pytest.raises(ValueError):
+        rigid.rigid_terms(rot, src, tgt, tdat[:1].contiguous(), *rest)
+    assert rigid.LAUNCHES == before
+    out = torch.empty(1, dtype=torch.float32, device=cuda)
+    scratch = torch.empty(16, dtype=torch.float32, device=cuda)
+    ticket = torch.empty(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rigid.launch(rot[:0], src[:, :0], tgt, tdat, cos_ang,
+                     2 * sigma * sigma, simval, scratch, ticket, out[:0], out)
+
+
+@pytest.mark.cuda
+def test_rigid_align_through_the_kernel_is_rigid_align_through_its_twin(
+        cuda, monkeypatch):
+    """rigid_align on the card at ico-4, data turned by 10 degrees: through
+    K3, every cost evaluation one `rigid.kernel` count and one launch;
+    through the plain version, the same final cost to rtol 1e-4 and
+    coordinates to 1e-2 at RAD 100 (the tolerances that hold the port's
+    alignment to the JAX package's)."""
+    from newmsm_tpu_torch import trace
+    from newmsm_tpu_torch.ops import rigid, rigid_bench
+    from newmsm_tpu_torch.reg import rigid as TR
+    from newmsm_tpu_torch.reg.config import RegConfig
+    from newmsm_tpu_torch.reg.featurespace import Featurespace
+    _, src, tgt, tdat, cos_ang, sigma, _ = rigid_bench.problem(4, 2, 2, cuda)
+    sphere = Mesh.from_icosphere(4)
+    feat = Featurespace(data=[src.double().cpu().numpy(),
+                              tdat.double().cpu().numpy()],
+                        excl=[None, None])
+
+    def align():
+        with trace.run(None, cuda, on=True):
+            with trace.span("affine") as span:
+                out = TR.rigid_align(sphere, sphere, feat, RegConfig(),
+                                     iters=10, simval=2, device=cuda)
+        return out, span.counters
+
+    before = rigid.LAUNCHES
+    out_k, c = align()
+    assert c["rigid.kernel"] == c["cost_evals"] == rigid.LAUNCHES - before
+    assert "rigid.twin" not in c
+    monkeypatch.setattr(TR, "rigid_cost", TR.rigid_cost_twin)
+    out_t, c_t = align()
+    assert rigid.LAUNCHES - before == c["cost_evals"]
+    np.testing.assert_allclose(out_k.coords, out_t.coords, atol=1e-2)
+
+    def cost(mesh):
+        rot = torch.as_tensor(mesh.coords, dtype=torch.float32).to(cuda)
+        return float(TR.rigid_cost_twin(torch.zeros(3, device=cuda), rot,
+                                        src, tgt, tdat, cos_ang, sigma, 2))
+    np.testing.assert_allclose(cost(out_k), cost(out_t), rtol=1e-4)
+    assert cost(out_k) > cost(sphere)

@@ -252,7 +252,8 @@ def test_kernel_source_and_build_command():
     assert lib.name.startswith("icm_binary_") and lib.suffix == ".so"
 
 
-@pytest.mark.parametrize("asked", ["locate_bary.cu", icm.SOURCE])
+@pytest.mark.parametrize("asked", ["locate_bary.cu", icm.SOURCE,
+                                   "rigid_cost.cu"])
 def test_one_build_builds_every_csrc_source(asked, tmp_path, monkeypatch):
     """Asked for one csrc/ source, _build compiles every csrc/ source whose
     library is missing (so that no nvcc runs inside a timed window), and a
@@ -272,7 +273,7 @@ def test_one_build_builds_every_csrc_source(asked, tmp_path, monkeypatch):
     monkeypatch.setattr(_build.subprocess, "run", fake_run)
     lib = _build.build(asked)
     every = sorted(p.name for p in _build.CSRC_DIR.glob("*.cu"))
-    assert {"locate_bary.cu", icm.SOURCE} <= set(every)
+    assert {"locate_bary.cu", icm.SOURCE, "rigid_cost.cu"} <= set(every)
     assert sorted(calls) == every
     assert lib == _build.library_path(asked) and lib.exists()
     assert all(_build.library_path(s).with_suffix(".log").exists()
@@ -285,7 +286,8 @@ def test_one_build_builds_every_csrc_source(asked, tmp_path, monkeypatch):
     assert calls[-1] == "other.cu" and len(calls) == len(every) + 1
 
 
-@pytest.mark.parametrize("asked", ["locate_bary.cu", icm.SOURCE])
+@pytest.mark.parametrize("asked", ["locate_bary.cu", icm.SOURCE,
+                                   "rigid_cost.cu"])
 def test_a_build_at_other_flags_builds_the_asked_source_alone(
         asked, tmp_path, monkeypatch):
     """Other flags than NVCC_FLAGS (a variant build of a bench or a SASS

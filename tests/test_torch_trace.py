@@ -207,8 +207,9 @@ def test_every_event_and_key_of_before_is_written(traced, name, want):
 
 def test_stage_spans_counters(traced):
     """The counters each metric reads: fusion moves, AFFINE steps and cost
-    evaluations, host tables, group alpha steps and regrows, the CLI's
-    start-up marks."""
+    evaluations (each a `rigid.twin` count on the CPU, and no `rigid.kernel`
+    count), host tables, group alpha steps and regrows, the CLI's start-up
+    marks."""
     pair = [e for e in _events(traced["strain_warm"]) if e["event"] == "span"]
     fusion = [s for s in pair if s["name"] == "fusion"]
     assert fusion and all(s["counters"]["fusion.move"]["n"] > 0
@@ -217,6 +218,9 @@ def test_stage_spans_counters(traced):
     assert affine["counters"]["affine.step"]["n"] > 0
     assert affine["counters"]["cost_evals"] >= \
         3 * affine["counters"]["affine.step"]["n"]
+    assert affine["counters"]["rigid.twin"] == \
+        affine["counters"]["cost_evals"]
+    assert affine["counters"].get("rigid.kernel", 0) == 0
     group = [e for e in _events(traced["gmsm_s4"]) if e["event"] == "span"]
     opts = [s for s in group if s["name"] == "opt"]
     assert opts and all("regrows" in s["counters"]
