@@ -19,12 +19,12 @@ no result line:
               then queries off the sphere (radius 0.5 to 150, as the
               anatomical cost sends them) in one call of 1,966,080, the
               size of a triclique call at ico-6;
-              then K2 against its plain version (reg/optimise/fusion.py
-              _binary_icm + binary_energy) in its three forms (triplet,
+              then K2 against its plain version (ops/icm.py
+              icm_binary_twin) in its three forms (triplet,
               pair, group) at ico-2/3/4 and the group's N for S = 8:
               bit for bit on small-integer tables, and two launches
               equal on Gaussian tables;
-              then K3 against its plain version (reg/rigid.py
+              then K3 against its plain version (ops/rigid.py
               rigid_terms_twin) at AFFINE's ico-5 shape and at the edges of
               its arithmetic: each source's jp and the total within
               ops/rigid_bench.py's tolerances, two calls bit for bit;
@@ -87,11 +87,15 @@ no result line:
               evaluation at ico-5 (D = 2 cosine, D = 10 SSD), beside the
               bound of the call's gates and neighbourhood pairs.
 
-Phases 4 to 9 and phase 11's one-rank run each set the kernel's launch
-count to 0 before the call and read it after (K3's too in phases 4 to 8:
-one launch a cost evaluation of AFFINE, none on the paths without it); the ranks of phases 10 and 11
-are fresh processes, whose counts start at 0 and are read from each rank. A path that never launched the kernel,
-on any rank, fails the run, and so does a failing rank.
+Phases 4 to 9 and phase 11's one-rank run each zero the kernels' tallies
+(ops/_build.py) before the call and read them after; the ranks of phases
+10 and 11 are fresh processes, whose tallies start at 0 and are read from
+each rank. On every path each kernel is held to its metrics file
+(`check_kernels`): rank 0's launches equal its `<kernel>.kernel` counts,
+nothing counts `<kernel>.twin`, every rank launched K1, and every rank
+launched K2 once a fusion move or alpha step and K3 once a cost
+evaluation of AFFINE (none on the paths without it). Any mismatch fails
+the run, and so does a failing rank.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Imports neither JAX nor the JAX package.
 """
@@ -296,9 +300,8 @@ def phase_device(torch):
 def phase_build():
     from newmsm_tpu_torch.ops import _build, icm, locate, rigid
     t0 = time.perf_counter()
-    locate._library()
-    icm.library()
-    rigid.library()
+    for k in (locate, icm, rigid):
+        k.SEAM.library()
     print(f"build: {locate.SOURCE}, {icm.SOURCE} and {rigid.SOURCE} ready "
           f"(nvcc at first use) in {time.perf_counter() - t0:.2f} s")
     name = f"{locate.KERNEL}ILi{MAIN_RES}E"
@@ -317,11 +320,46 @@ def phase_build():
           f"resident blocks (occupancy x SMs)")
 
 
-def phase_kernel(torch):
-    """K1 against its plain version on the card (tolerances of the JAX
-    package's on-device probe, pallas_locate.py:149-158)."""
+def _k1_against_twin(torch, q, res, where, n_rand):
+    """One K1 call on the card against its plain version on the queries q
+    (Q,3), held to the tolerances of the JAX package's on-device probe
+    (pallas_locate.py:149-158): finite weights, row sums within 1e-4,
+    positions within 2e-4 (unit sphere), weights >= -1e-4, face ids
+    differing (boundary ties) on at most 1e-4 of the first n_rand (random)
+    queries. Returns the kernel's and the twin's face ids and (Q,3)
+    float64 weights, and the position error."""
     from newmsm_tpu_torch.core.icosphere import icosphere
     from newmsm_tpu_torch.ops import locate
+    ico = icosphere(res)
+    px, py, pz = (q[:, i].contiguous() for i in range(3))
+    got = (locate.locate_bary(px, py, pz, res),
+           locate.locate_bary_reference(px, py, pz, res))
+    torch.cuda.synchronize()
+    (fk, Wk), (fp, Wp) = ((fid.cpu().numpy(),
+                           torch.stack(w, 1).double().cpu().numpy())
+                          for fid, *w in got)
+    pos_k, pos_p = ((ico.coords[ico.faces[f]] * W[..., None]).sum(1)
+                    for f, W in ((fk, Wk), (fp, Wp)))
+    pos_err = float(np.abs(pos_k - pos_p).max())
+    row_err = float(np.abs(Wk.sum(1) - 1.0).max())
+    mism = int((fk[:n_rand] != fp[:n_rand]).sum())
+    print(f"kernel res {res}{where}: queries {len(fk)} fid_mismatch "
+          f"{mism}/{n_rand} pos_err {pos_err:.3e} row_err {row_err:.3e} "
+          f"min_w {Wk.min():.3e}")
+    tag = f"res {res}{where}"
+    check(np.isfinite(Wk).all(), f"{tag}: non-finite weights")
+    check(row_err < 1e-4, f"{tag}: row sums off by {row_err}")
+    check(pos_err < 2e-4, f"{tag}: position error {pos_err}")
+    check(Wk.min() >= -1e-4, f"{tag}: negative weight {Wk.min()}")
+    check(mism <= 1e-4 * n_rand, f"{tag}: {mism} face-id mismatches")
+    return fk, fp, Wk, Wp, pos_err
+
+
+def phase_kernel(torch):
+    """K1 against its plain version on the card: random directions plus
+    every vertex, then queries off the sphere in one large call; then K2
+    and K3 against theirs."""
+    from newmsm_tpu_torch.core.icosphere import icosphere
 
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -333,74 +371,30 @@ def phase_kernel(torch):
         q = q / torch.linalg.norm(q, dim=1, keepdim=True) * 100.0
         q = torch.cat([q, torch.as_tensor(ico.coords * 100.0,
                                           dtype=torch.float32)]).to(dev)
-        px, py, pz = (q[:, i].contiguous() for i in range(3))
-        fid_k, *wk = locate.locate_bary(px, py, pz, res)
-        fid_p, *wp = locate.locate_bary_reference(px, py, pz, res)
-        torch.cuda.synchronize()
-        Wk = torch.stack(wk, 1).double().cpu().numpy()
-        Wp = torch.stack(wp, 1).double().cpu().numpy()
-        fk = fid_k.cpu().numpy()
-        fp = fid_p.cpu().numpy()
-        faces = ico.faces
-        pos_k = (ico.coords[faces[fk]] * Wk[..., None]).sum(1)
-        pos_p = (ico.coords[faces[fp]] * Wp[..., None]).sum(1)
-        pos_err = float(np.abs(pos_k - pos_p).max())
-        row_err = float(np.abs(Wk.sum(1) - 1.0).max())
-        wmin = float(Wk.min())
-        mism = fk[:n_rand] != fp[:n_rand]
+        fk, fp, Wk, Wp, pos_err = _k1_against_twin(torch, q, res, "", n_rand)
         same = fk == fp
         w_err = float(np.abs(Wk[same] - Wp[same]).max())
+        # a vertex query lands on an incident face with mass 1 (1e-3)
         vid = np.arange(ico.nvertices)
-        hit = faces[fk[n_rand:]] == vid[:, None]
+        hit = ico.faces[fk[n_rand:]] == vid[:, None]
         vmass = float(np.abs(Wk[n_rand:][hit] - 1.0).max()) if hit.any() \
             else 1.0
-        print(f"kernel res {res}: queries {q.shape[0]} fid_mismatch "
-              f"{int(mism.sum())}/{n_rand} pos_err {pos_err:.3e} "
-              f"row_err {row_err:.3e} min_w {wmin:.3e} "
-              f"w_err_same_face {w_err:.3e} vertex_mass_err {vmass:.3e}")
-        # tolerances of the JAX package's on-device probe: row sums 1e-4,
-        # positions 2e-4 (unit sphere), weights >= -1e-4, vertex mass 1e-3;
-        # face-id mismatches (boundary ties) at most 1e-4 of random queries
-        check(row_err < 1e-4, f"res {res}: row sums off by {row_err}")
-        check(pos_err < 2e-4, f"res {res}: position error {pos_err}")
-        check(wmin >= -1e-4, f"res {res}: negative weight {wmin}")
+        print(f"kernel res {res}: w_err_same_face {w_err:.3e} "
+              f"vertex_mass_err {vmass:.3e}")
         check(bool(hit.any(axis=1).all()),
               f"res {res}: a vertex query landed on a non-incident face")
         check(vmass < 1e-3, f"res {res}: vertex mass error {vmass}")
-        check(mism.sum() <= 1e-4 * n_rand,
-              f"res {res}: {int(mism.sum())} face-id mismatches")
         worst_pos = max(worst_pos, pos_err)
 
     # off the sphere, one large call: the anatomical cost (regoption 5)
     # queries raw barycentric combinations, and a triclique call at ico-6
     # is twice the largest unary call
-    res = MAIN_RES
-    ico = icosphere(res)
     q = torch.randn((BIG_CALL_QUERIES, 3), generator=g, dtype=torch.float32)
     q = q / torch.linalg.norm(q, dim=1, keepdim=True)
     radius = 0.5 + 149.5 * torch.rand((BIG_CALL_QUERIES, 1), generator=g)
-    q = (q * radius).to(dev)
-    px, py, pz = (q[:, i].contiguous() for i in range(3))
-    fid_k, *wk = locate.locate_bary(px, py, pz, res)
-    fid_p, *wp = locate.locate_bary_reference(px, py, pz, res)
-    torch.cuda.synchronize()
-    Wk = torch.stack(wk, 1).double().cpu().numpy()
-    Wp = torch.stack(wp, 1).double().cpu().numpy()
-    fk, fp = fid_k.cpu().numpy(), fid_p.cpu().numpy()
-    pos_err = float(np.abs(
-        (ico.coords[ico.faces[fk]] * Wk[..., None]).sum(1)
-        - (ico.coords[ico.faces[fp]] * Wp[..., None]).sum(1)).max())
-    row_err = float(np.abs(Wk.sum(1) - 1.0).max())
-    mism = int((fk != fp).sum())
-    print(f"kernel res {res}, off-sphere radius 0.5..150: queries "
-          f"{BIG_CALL_QUERIES} fid_mismatch {mism} pos_err {pos_err:.3e} "
-          f"row_err {row_err:.3e} min_w {float(Wk.min()):.3e}")
-    check(np.isfinite(Wk).all(), "off-sphere: non-finite weights")
-    check(row_err < 1e-4, f"off-sphere: row sums off by {row_err}")
-    check(pos_err < 2e-4, f"off-sphere: position error {pos_err}")
-    check(Wk.min() >= -1e-4, f"off-sphere: negative weight {Wk.min()}")
-    check(mism <= 1e-4 * BIG_CALL_QUERIES,
-          f"off-sphere: {mism} face-id mismatches")
+    *_, pos_err = _k1_against_twin(torch, (q * radius).to(dev), MAIN_RES,
+                                   ", off-sphere radius 0.5..150",
+                                   BIG_CALL_QUERIES)
     phase_icm_kernel()
     phase_rigid_kernel()
     return max(worst_pos, pos_err)
@@ -493,17 +487,11 @@ def phase_timing(torch, n_queries: int, res: int):
     path's shape, beside the roofline and issue-slot bounds."""
     from newmsm_tpu_torch.ops import locate, locate_bench as lb
     dev = torch.device("cuda", torch.cuda.current_device())
+    k = lb.bench_source(locate.SOURCE, res, n_queries)
     px, py, pz = lb.random_queries(n_queries, dev)
-    fn = locate._library().locate_bary_launch
-    tables = locate.kernel_tables(dev)
-    fid = torch.empty(n_queries, dtype=torch.int32, device=dev)
-    w0, w1, w2 = (torch.empty_like(px) for _ in range(3))
-    k = lb.time_launches(lambda: locate.launch(fn, px, py, pz, res, tables,
-                                               fid, w0, w1, w2))
     plain = lb.time_launches(
         lambda: locate.locate_bary_reference(px, py, pz, res), windows=3,
         launches=5, warmup=2)
-    static = lb.static_profile(locate.SOURCE, res, n_queries, k)
     roof = lb.roofline(res, n_queries)
     print(f"kernel time res {res}, {n_queries} queries: kernel "
           f"{k['ms']:.4f} ms (windows {[round(x, 4) for x in k['windows_ms']]}"
@@ -515,13 +503,13 @@ def phase_timing(torch, n_queries: int, res: int):
           f"({lb.flops_per_query(res)} flops and {lb.BYTES_PER_QUERY} bytes "
           f"a query; bytes alone {roof['bytes_ms']:.5f} ms), share "
           f"{roof['bound_ms'] / k['ms']:.3f}")
-    check(static["issue_slot_ms"] is not None,
+    check(k["issue_slot_ms"] is not None,
           "no SM clock sample was taken under the kernel load")
-    print(f"issue-slot bound: {static['sass_instructions']} SASS "
-          f"instructions a query at {static['sm_mhz']:.0f} MHz -> "
-          f"{static['issue_slot_ms']:.5f} ms, share "
-          f"{static['issue_slot_ms'] / k['ms']:.3f}")
-    print(f"SASS by opcode: {static['sass_opcodes']}")
+    print(f"issue-slot bound: {k['sass_instructions']} SASS "
+          f"instructions a query at {k['sm_mhz']:.0f} MHz -> "
+          f"{k['issue_slot_ms']:.5f} ms, share "
+          f"{k['issue_slot_ms'] / k['ms']:.3f}")
+    print(f"SASS by opcode: {k['sass_opcodes']}")
     return k, plain, roof
 
 
@@ -588,51 +576,74 @@ def span_total(events, name) -> int:
     return total
 
 
-# K3's launches by path (run_path)
-RIGID_BY_PATH = {}
+def tallies() -> dict:
+    """A copy of each kernel's tally in this process: {name: {"kernel",
+    "twin", "largest"}}."""
+    from newmsm_tpu_torch.ops import icm, locate, rigid
+    return {k.SEAM.name: dict(k.SEAM.tally) for k in (locate, icm, rigid)}
 
 
-def check_rigid(tag, launches, events):
-    """K3's launches of one path against its metrics file: one launch, one
-    `rigid.kernel` count and one `cost_evals` count a cost evaluation, no
-    `rigid.twin`."""
-    evals = span_total(events, "cost_evals")
-    kernel = span_total(events, "rigid.kernel")
-    twin = span_total(events, "rigid.twin")
-    print(f"{tag}: rigid_cost launches {launches}, cost_evals {evals}, "
-          f"rigid.kernel counts {kernel}, rigid.twin counts {twin}")
-    check(launches == evals == kernel and twin == 0,
-          f"{tag}: K3 launches {launches} / rigid.kernel {kernel} / "
-          f"rigid.twin {twin} do not match the {evals} cost evaluations")
-    RIGID_BY_PATH[tag] = launches
+def measured(torch, fn):
+    """fn() on the card, the kernels' tallies and the peak device memory
+    zeroed first: (its result, wall seconds, [`tallies()`], peak device
+    bytes)."""
+    from newmsm_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_tallies()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, [tallies()],
+            torch.cuda.max_memory_allocated())
 
 
-def check_icm(tag, launches, events, move):
-    """K2's launches of one path (by rank, or one number) against the
-    run's metrics file: each rank launched once per `move` mark (each rank
-    runs the whole ICM), the spans count as many `icm.kernel` and no
-    `icm.twin`."""
-    moves = span_total(events, move)
-    kernel = span_total(events, "icm.kernel")
-    twin = span_total(events, "icm.twin")
-    by_rank = launches if isinstance(launches, list) else [launches]
-    print(f"{tag}: icm_binary launches {by_rank} (by rank), {move} marks "
-          f"{moves}, icm.kernel counts {kernel}, icm.twin counts {twin}")
-    check(all(n == moves for n in by_rank) and kernel == moves and twin == 0,
-          f"{tag}: K2 launches {by_rank} / icm.kernel {kernel} / icm.twin "
-          f"{twin} do not match the {moves} {move} marks")
+def launched(by_rank, name) -> int:
+    """Launches of kernel `name` summed over a path's ranks."""
+    return sum(t[name]["kernel"] for t in by_rank)
+
+
+def largest_call(by_rank) -> int:
+    """The most queries of one K1 launch on any of a path's ranks."""
+    return max(t["locate"]["largest"] for t in by_rank)
+
+
+def check_kernels(tag, by_rank, events, move):
+    """Each kernel's launches on one path, from the tallies of its ranks
+    (rank 0 first; a kernel a rank does not report is skipped), against
+    the path's metrics file, which rank 0 writes: rank 0's launches equal
+    the spans' `<name>.kernel` counts and no span counts `<name>.twin`;
+    every rank launched K1; every rank launched K2 once a `move` mark
+    (each rank runs the whole ICM) and K3 once a `cost_evals` count (none
+    on a path without AFFINE)."""
+    for name, per in (("locate", None), ("icm", move),
+                      ("rigid", "cost_evals")):
+        if name not in by_rank[0]:
+            continue
+        n = [t[name]["kernel"] for t in by_rank]
+        kernel = span_total(events, f"{name}.kernel")
+        twin = span_total(events, f"{name}.twin")
+        line = (f"{name} launches by rank {n}, {name}.kernel counts "
+                f"{kernel}, {name}.twin counts {twin}")
+        ok = n[0] == kernel and twin == 0
+        if per is None:
+            ok = ok and min(n) > 0
+            line += f", the largest of {largest_call(by_rank)} queries"
+        else:
+            want = span_total(events, per)
+            line += f", {per} {want}"
+            ok = ok and all(x == want for x in n)
+        print(f"{tag}: {line}")
+        check(ok, f"{tag}: the launches do not match the counts: {line}")
 
 
 def run_path(torch, workdir, tag, inputs, config_text, warm_runs=0,
              extra=()):
-    """One path through the port's CLI on the card, with the kernels'
-    launch counts set to 0 just before and read just after; `warm_runs` more
-    runs in the same process afterwards (tables cached), timed and their
-    stage seconds kept. Returns (output prefix, events, (K1 launches, most
-    queries in one K1 launch, K2 launches), warm events of the last warm
-    run or None)."""
+    """One path through the port's CLI on the card, `measured`;
+    `warm_runs` more runs in the same process afterwards (tables cached),
+    timed and their stage seconds kept. Returns (output prefix, events,
+    [the kernels' `tallies`], warm events of the last warm run or None)."""
     from newmsm_tpu_torch import cli
-    from newmsm_tpu_torch.ops import icm, locate, rigid
 
     conf = os.path.join(workdir, f"{tag}.conf")
     with open(conf, "w") as f:
@@ -640,30 +651,22 @@ def run_path(torch, workdir, tag, inputs, config_text, warm_runs=0,
 
     def run_cli(prefix):
         metrics = prefix + "metrics.jsonl"
-        t0 = time.perf_counter()
-        rc = cli.main([*inputs, "-o", prefix, "--conf", conf, "--metrics",
-                       metrics, "--device", "cuda", *extra])
-        torch.cuda.synchronize()
+        rc, wall, launches, _ = measured(torch, lambda: cli.main(
+            [*inputs, "-o", prefix, "--conf", conf, "--metrics", metrics,
+             "--device", "cuda", *extra]))
         check(rc == 0, f"{tag}: cli returned {rc}")
-        wall = time.perf_counter() - t0
-        return wall, [json.loads(line) for line in open(metrics)]
+        return wall, [json.loads(line) for line in open(metrics)], launches
 
     out = os.path.join(workdir, f"{tag}_out_")
-    locate.LAUNCHES = locate.LARGEST = icm.LAUNCHES = rigid.LAUNCHES = 0
-    wall, events = run_cli(out)
-    launches = (locate.LAUNCHES, locate.LARGEST, icm.LAUNCHES)
-    rigid_launches = rigid.LAUNCHES
-    print(f"{tag}: cli wall {wall:.2f} s, locate_bary launches "
-          f"{launches[0]}, the largest of {launches[1]} queries")
-    check(launches[0] > 0,
-          f"{tag}: the path never launched the locate kernel")
-    check_icm(tag, launches[2], events, "fusion.move")
-    check_rigid(tag, rigid_launches, events)
+    wall, events, launches = run_cli(out)
+    print(f"{tag}: cli wall {wall:.2f} s")
+    check_kernels(tag, launches, events, "fusion.move")
     warm_events = None
     if warm_runs:
         warm = []
         for i in range(warm_runs):
-            w, warm_events = run_cli(os.path.join(workdir, f"{tag}_warm{i}_"))
+            w, warm_events, _ = run_cli(os.path.join(workdir,
+                                                     f"{tag}_warm{i}_"))
             warm.append(w)
         print(f"{tag}: {warm_runs} more runs in this process: "
               f"{[round(w, 4) for w in warm]} s, median "
@@ -751,8 +754,9 @@ def phase_main(torch, workdir, subject, warm_runs=0):
                 n_queries = max(n_queries,
                                 e["cps"] * min(4, e["labels"]) * e["pmax"])
             first_setup.setdefault(e["level"], e["setup_s"])
-    check(n_queries == launches[1], f"main: the largest locate call had "
-          f"{launches[1]} queries, not {n_queries}")
+    largest = launches[0]["locate"]["largest"]
+    check(n_queries == largest, f"main: the largest locate call had "
+          f"{largest} queries, not {n_queries}")
     print("first set-up seconds of each level (cold host table builds): "
           + ", ".join(f"level {lv}: {t}" for lv, t in first_setup.items()))
     check_registration("main", out, energies, template, in_data,
@@ -847,11 +851,9 @@ def phase_multimodal(torch, workdir):
           "multimodal recipe (regoption 3, triclique, CP 2/3/4, SG and data "
           f"grids 4/5/6, --it={AMSM_ITERS}); NOT the reference's config file "
           "verbatim, which is not in this repository")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     out, events, launches, _ = run_path(torch, workdir, "multimodal", inputs,
                                         MULTIMODAL_CONFIG)
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated()      # since `measured` zeroed it
     energies = print_stages("multimodal", events)
     first_setup = {}
     for e in events:
@@ -959,7 +961,6 @@ def phase_group(torch, workdir, profile=False):
     from newmsm_tpu_torch.core.mesh import Mesh
     from newmsm_tpu_torch.eval import metrics
     from newmsm_tpu_torch.eval.synth import synth_cohort
-    from newmsm_tpu_torch.ops import icm, locate
     from newmsm_tpu_torch.ops.unfold import count_folds
     from newmsm_tpu_torch.pipelines import gmsm
 
@@ -992,26 +993,16 @@ def phase_group(torch, workdir, profile=False):
     out = os.path.join(workdir, "group_out_")
     metrics_path = out + "metrics.jsonl"
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    locate.LAUNCHES = locate.LARGEST = icm.LAUNCHES = 0
-    t0 = time.perf_counter()
-    rc = cli.main(["--groupwise", "--meshes", lists["meshes"], "--data",
-                   lists["data"], "--template", tmpl_path, "-o", out,
-                   "--conf", conf, "--metrics", metrics_path, "--device",
-                   "cuda"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = (locate.LAUNCHES, locate.LARGEST, icm.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    rc, wall, launches, peak = measured(torch, lambda: cli.main(
+        ["--groupwise", "--meshes", lists["meshes"], "--data", lists["data"],
+         "--template", tmpl_path, "-o", out, "--conf", conf, "--metrics",
+         metrics_path, "--device", "cuda"]))
     check(rc == 0, f"group: cli returned {rc}")
-    print(f"group: cli wall {wall:.2f} s, locate_bary launches "
-          f"{launches[0]}, the largest of {launches[1]} queries; peak device "
-          f"memory {peak / 2**30:.3f} GiB")
-    check(launches[0] > 0, "group: the path never launched the locate kernel")
+    print(f"group: cli wall {wall:.2f} s, peak device memory "
+          f"{peak / 2**30:.3f} GiB")
 
     events = [json.loads(line) for line in open(metrics_path)]
-    check_icm("group", launches[2], events, "group.alpha")
+    check_kernels("group", launches, events, "group.alpha")
     iters = [e for e in events if e["event"] == "iter"]
     warp = {(e["level"], e["iter"]): e["warp_s"] for e in events
             if e["event"] == "warp"}
@@ -1064,13 +1055,12 @@ def phase_group(torch, workdir, profile=False):
             f.write(GROUP_LAST_LEVEL_CONFIG)
         trace_dir = os.path.join(workdir, "group_trace")
         pout = os.path.join(workdir, "group_profiled_")
-        t0 = time.perf_counter()
-        rc = cli.main(["--groupwise", "--meshes", lists["meshes"], "--data",
-                       lists["data"], "--template", tmpl_path, "-o", pout,
-                       "--conf", pconf, "--metrics", pout + "metrics.jsonl",
-                       "--device", "cuda", "--profile", trace_dir])
+        rc, pwall, _, _ = measured(torch, lambda: cli.main(
+            ["--groupwise", "--meshes", lists["meshes"], "--data",
+             lists["data"], "--template", tmpl_path, "-o", pout, "--conf",
+             pconf, "--metrics", pout + "metrics.jsonl", "--device", "cuda",
+             "--profile", trace_dir]))
         check(rc == 0, f"group: profiled cli returned {rc}")
-        pwall = time.perf_counter() - t0
         n_events, n_kernels, busy, span = trace_busy(trace_dir)
         check(n_kernels > 0, "group: the --profile trace holds no kernel")
         pe = [json.loads(line) for line in open(pout + "metrics.jsonl")]
@@ -1087,13 +1077,12 @@ def phase_group(torch, workdir, profile=False):
         mean_disp = np.mean([m.coords - meshes[0].coords for m in ms], axis=0)
         return float(np.sqrt((mean_disp ** 2).sum(1).mean()))
 
-    t0 = time.perf_counter()
-    ded = gmsm.dedrift(spheres, meshes[0], device="cuda")
-    torch.cuda.synchronize()
+    ded, ded_s, _, _ = measured(torch, lambda: gmsm.dedrift(
+        spheres, meshes[0], device="cuda"))
     ded_folds = [count_folds(m, device="cuda") for m in ded]
-    print(f"group: dedrift of {S} spheres in {time.perf_counter() - t0:.2f} "
-          f"s: rms mean displacement {drift(spheres):.4f} -> {drift(ded):.4f}"
-          f"; folds {ded_folds}")
+    print(f"group: dedrift of {S} spheres in {ded_s:.2f} s: rms mean "
+          f"displacement {drift(spheres):.4f} -> {drift(ded):.4f}; folds "
+          f"{ded_folds}")
     check(drift(ded) < drift(spheres), "group: dedrift did not shrink the "
           "mean displacement")
     check(sum(ded_folds) == 0, f"group: dedrifted spheres fold: {ded_folds}")
@@ -1106,11 +1095,10 @@ def phase_group(torch, workdir, profile=False):
     with open(sconf, "w") as f:
         f.write(GROUP_SMALL_CONFIG)
     gout = os.path.join(workdir, "gmsm_out_")
-    t0 = time.perf_counter()
-    res = gmsm.run_gmsm(sm, sd, small_t, sconf, outdir=gout, device="cuda")
-    torch.cuda.synchronize()
+    res, small_s, _, _ = measured(torch, lambda: gmsm.run_gmsm(
+        sm, sd, small_t, sconf, outdir=gout, device="cuda"))
     print(f"group: run_gmsm (3 subjects, ico-4, --it={GROUP_ITERS}) in "
-          f"{time.perf_counter() - t0:.2f} s: stats "
+          f"{small_s:.2f} s: stats "
           f"{ {k: round(v, 4) for k, v in res.stats.items()} }")
     want = {"cc", "dice", "areal_mean", "areal_max", "areal_95", "areal_98",
             "shape_mean", "shape_max"}
@@ -1162,8 +1150,8 @@ def run_ranks_cmd(cmd, timeout):
 def _torchrun_group(workdir, ref, tag, backend):
     """phase_group's CLI call under torchrun, 2 ranks on --device cuda with
     `backend`; checks energies, devices and spheres against phase_group
-    bitwise. Returns (K1 launches summed over the ranks, the largest call,
-    K2 launches summed over the ranks) and the level walls."""
+    bitwise. Returns the ranks' launches of K1 and K2 (the tallies its
+    `ranks` event reports) and the level walls."""
     from newmsm_tpu_torch.core import io as mio
     from newmsm_tpu_torch.core.mesh import Mesh
     out = os.path.join(workdir, f"{tag}_out_")
@@ -1195,15 +1183,15 @@ def _torchrun_group(workdir, ref, tag, backend):
                   f"{e['energy']:.6f} devices {e['devices']} maps_exchange "
                   f"{e['maps_exchange']} setup_s by rank "
                   f"{e['setup_s_by_rank']} opt_s by rank {e['opt_s_by_rank']}")
-    print(f"{tag}: locate_bary launches by rank {ranks['locate_launches']} "
-          f"(largest call by rank {ranks['locate_largest']}); peak device "
-          f"memory by rank "
+    print(f"{tag}: peak device memory by rank "
           f"{[round(b / 2**30, 3) for b in ranks['peak_device_bytes']]} GiB")
     check(all(e["devices"] == 2 for e in iters),
           f"{tag}: an iter event does not read devices 2")
-    check(min(ranks["locate_launches"]) > 0,
-          f"{tag}: a rank never launched the locate kernel")
-    check_icm(tag, ranks["icm_launches"], events, "group.alpha")
+    launches = [{"locate": {"kernel": n, "largest": q}, "icm": {"kernel": m}}
+                for n, q, m in zip(ranks["locate_launches"],
+                                   ranks["locate_largest"],
+                                   ranks["icm_launches"])]
+    check_kernels(tag, launches, events, "group.alpha")
     energies = [e["energy"] for e in iters]
     same_e = energies == ref["energies"]
     same_s = [np.array_equal(Mesh.load(out + f"sphere-{s}.reg.surf.gii")
@@ -1220,8 +1208,7 @@ def _torchrun_group(workdir, ref, tag, backend):
     check(all(same_s), f"{tag}: output spheres differ from phase group's")
     check(all(same_m), f"{tag}: transformed maps differ from phase group's")
     walls = [e["wall_s"] for e in events if e["event"] == "level"]
-    return (sum(ranks["locate_launches"]), max(ranks["locate_largest"]),
-            sum(ranks["icm_launches"])), walls
+    return launches, walls
 
 
 def _group_ring_rank(lists, tmpl_path, conf, out, device="cuda"):
@@ -1230,7 +1217,6 @@ def _group_ring_rank(lists, tmpl_path, conf, out, device="cuda"):
     import torch
     import torch.distributed as dist
     from newmsm_tpu_torch.cli import read_list_file
-    from newmsm_tpu_torch.ops import icm, locate
     from newmsm_tpu_torch.parallel import multihost as mh
     from newmsm_tpu_torch.reg.group import GroupMeshRegistration
     g = GroupMeshRegistration(device=mh.rank_device(device),
@@ -1248,8 +1234,7 @@ def _group_ring_rank(lists, tmpl_path, conf, out, device="cuda"):
     return dict(energies=[e for _, _, e in g.energy_log],
                 levels=[lv for lv, _, _ in g.energy_log],
                 exchange=g._maps_exchange_used, world=g.comm.world,
-                launches=locate.LAUNCHES, largest=locate.LARGEST,
-                icm_launches=icm.LAUNCHES,
+                tallies=tallies(),
                 peak=torch.cuda.max_memory_allocated() if cuda else -1)
 
 
@@ -1282,8 +1267,7 @@ def phase_group_sharded(torch, workdir, ref):
     want = [e for e, lv in zip(ref["energies"], ref["levels"]) if lv <= 2]
     print(f"group_ring: 2 ranks, maps_exchange "
           f"{[r['exchange'] for r in ring]}, levels 1-2 of the config: wall "
-          f"{time.perf_counter() - t1:.2f} s (spawn included); locate_bary "
-          f"launches by rank {[r['launches'] for r in ring]}; peak device "
+          f"{time.perf_counter() - t1:.2f} s (spawn included); peak device "
           f"memory by rank {[round(r['peak'] / 2**30, 3) for r in ring]} "
           f"GiB; energies bitwise those of phase group's levels 1-2: "
           f"{[r['energies'] == want for r in ring]}")
@@ -1292,13 +1276,9 @@ def phase_group_sharded(torch, workdir, ref):
     check(all(r["energies"] == want for r in ring),
           f"group_ring: energies {[r['energies'] for r in ring]} differ "
           f"from phase group's levels 1-2 {want}")
-    check(min(r["launches"] for r in ring) > 0,
-          "group_ring: a rank never launched the locate kernel")
-    check_icm("group_ring", [r["icm_launches"] for r in ring], ring_events,
-              "group.alpha")
-    by_path["group_ring"] = (sum(r["launches"] for r in ring),
-                             max(r["largest"] for r in ring),
-                             sum(r["icm_launches"] for r in ring))
+    by_path["group_ring"] = [r["tallies"] for r in ring]
+    check_kernels("group_ring", by_path["group_ring"], ring_events,
+                  "group.alpha")
     if torch.cuda.device_count() >= 2:
         by_path["group_sharded_nccl"], _ = _torchrun_group(
             workdir, ref, "group_sharded_nccl", "nccl")
@@ -1322,7 +1302,6 @@ def _gmsm_rank(meshes, datasets, template, conf, metrics_path):
     this rank's card; its summary, launches, wall and peak memory."""
     import torch
     import torch.distributed as dist
-    from newmsm_tpu_torch.ops import icm, locate
     from newmsm_tpu_torch.parallel import multihost as mh
     from newmsm_tpu_torch.pipelines import gmsm
     dev = mh.rank_device("cuda")
@@ -1331,8 +1310,7 @@ def _gmsm_rank(meshes, datasets, template, conf, metrics_path):
                         group=dist.group.WORLD, metrics_path=metrics_path)
     torch.cuda.synchronize(dev)
     return dict(_gmsm_summary(res), wall=time.perf_counter() - t0,
-                launches=locate.LAUNCHES, largest=locate.LARGEST,
-                icm_launches=icm.LAUNCHES,
+                tallies=tallies(),
                 peak=torch.cuda.max_memory_allocated(dev), device=str(dev))
 
 
@@ -1373,7 +1351,6 @@ def phase_gmsm_ranks(torch, workdir):
     from newmsm_tpu_torch.core.mesh import Mesh
     from newmsm_tpu_torch.eval import metrics
     from newmsm_tpu_torch.eval.synth import synth_cohort
-    from newmsm_tpu_torch.ops import icm, locate
     from newmsm_tpu_torch.ops.unfold import count_folds
     from newmsm_tpu_torch.parallel import group_fusion as GF
     from newmsm_tpu_torch.parallel import multihost as mh
@@ -1394,23 +1371,14 @@ def phase_gmsm_ranks(torch, workdir):
           f"--it={GROUP_STANDARD_ITERS}); nothing else cut")
 
     one_metrics = os.path.join(workdir, "gmsm_one_metrics.jsonl")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    locate.LAUNCHES = locate.LARGEST = icm.LAUNCHES = 0
-    t0 = time.perf_counter()
-    res = gmsm.run_gmsm(meshes, datasets, template, conf, device="cuda",
-                        metrics_path=one_metrics)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = (locate.LAUNCHES, locate.LARGEST, icm.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    res, wall, launches, peak = measured(torch, lambda: gmsm.run_gmsm(
+        meshes, datasets, template, conf, device="cuda",
+        metrics_path=one_metrics))
     one = _gmsm_summary(res)
-    print(f"gmsm_ranks: one rank: wall {wall:.2f} s, locate_bary launches "
-          f"{launches[0]}, the largest of {launches[1]} queries; peak device "
-          f"memory {peak / 2**30:.3f} GiB")
-    check(launches[0] > 0, "gmsm_ranks: the path never launched the kernel")
+    print(f"gmsm_ranks: one rank: wall {wall:.2f} s, peak device memory "
+          f"{peak / 2**30:.3f} GiB")
     iters, one_events = _print_gmsm_iters("gmsm_ranks one rank", one_metrics)
-    check_icm("gmsm_ranks one rank", launches[2], one_events, "group.alpha")
+    check_kernels("gmsm_ranks one rank", launches, one_events, "group.alpha")
     check(all(np.isfinite(e["energy"]) for e in iters),
           "gmsm_ranks: energies not finite")
     levels = sorted({e["level"] for e in iters})
@@ -1447,13 +1415,12 @@ def phase_gmsm_ranks(torch, workdir):
             args=(meshes, datasets, template, conf, rank_metrics))
         print(f"{tag}: 2 ranks on {[r['device'] for r in ranks]}: wall "
               f"{time.perf_counter() - t0:.2f} s with the spawn, run_gmsm "
-              f"{[round(r['wall'], 2) for r in ranks]} s by rank; "
-              f"locate_bary launches by rank {[r['launches'] for r in ranks]} "
-              f"(largest {[r['largest'] for r in ranks]}); peak device memory "
-              f"by rank {[round(r['peak'] / 2**30, 3) for r in ranks]} GiB")
+              f"{[round(r['wall'], 2) for r in ranks]} s by rank; peak device "
+              f"memory by rank {[round(r['peak'] / 2**30, 3) for r in ranks]}"
+              f" GiB")
         rank_iters, rank_events = _print_gmsm_iters(tag, rank_metrics)
-        check_icm(tag, [r["icm_launches"] for r in ranks], rank_events,
-                  "group.alpha")
+        by_path[tag] = [r["tallies"] for r in ranks]
+        check_kernels(tag, by_path[tag], rank_events, "group.alpha")
         check(all(e["devices"] == 2 for e in rank_iters),
               f"{tag}: an iter event does not read devices 2")
         for r, got in enumerate(ranks):
@@ -1462,11 +1429,10 @@ def phase_gmsm_ranks(torch, workdir):
                   f"{same}")
             check(all(same.values()), f"{tag}: rank {r} differs from the "
                                       f"one-rank run: {same}")
-        total = sum(r["launches"] for r in ranks)
-        check(total == launches[0], f"{tag}: {total} launches over the "
-                                    f"ranks, {launches[0]} on one rank")
-        by_path[tag] = (total, max(r["largest"] for r in ranks),
-                        sum(r["icm_launches"] for r in ranks))
+        total = launched(by_path[tag], "locate")
+        one_rank = launched(launches, "locate")
+        check(total == one_rank, f"{tag}: {total} K1 launches over the "
+                                 f"ranks, {one_rank} on one rank")
     if len(backends) == 1:
         print("gmsm_ranks_nccl: not run: this machine has "
               f"{torch.cuda.device_count()} card, and NCCL refuses two ranks "
@@ -1520,16 +1486,20 @@ def main(argv=None) -> int:
         by_path.update(phase_gmsm_ranks(torch, workdir))
     k, plain, roof = phase_timing(torch, n_queries, MAIN_RES)
     # and at the largest call of the new paths (triclique / anatomical)
-    largest = max(q for _, q, _ in by_path.values())
+    largest = max(largest_call(r) for r in by_path.values())
     kl, plainl, roofl = phase_timing(torch, largest, MAIN_RES)
+    # each kernel's launches by path, summed over the ranks (the group
+    # paths' ranks events do not report K3)
+    launches = {name: {p: launched(r, name) for p, r in by_path.items()
+                       if name in r[0]} for name in ("locate", "icm", "rigid")}
     # K2 runs on every path with a DISCRETE level; MCMC bypasses it
-    for path, (_, _, n) in by_path.items():
+    for path, n in launches["icm"].items():
         check((n == 0) if path == "mcmc" else (n > 0),
               f"{path}: {n} icm_binary launches")
     icm_times = phase_icm_timing()
     # K3 runs on the paths with an AFFINE level, and on no other
-    for path, n in RIGID_BY_PATH.items():
-        check((n > 0) == (path in ("main", "msmpair")),
+    for path, n in launches["rigid"].items():
+        check((n > 0) == (path in ("strain", "msmpair")),
               f"{path}: {n} rigid_cost launches")
     rigid_times = phase_rigid_timing()
     # library_ms: no single PyTorch call computes point location on a
@@ -1537,9 +1507,10 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [{
         "name": "locate_bary", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": sum(n for n, _, _ in by_path.values()),
-        "launches_by_path": {p: n for p, (n, _, _) in by_path.items()},
-        "largest_call_by_path": {p: q for p, (_, q, _) in by_path.items()},
+        "launches": sum(launches["locate"].values()),
+        "launches_by_path": launches["locate"],
+        "largest_call_by_path": {p: largest_call(r)
+                                 for p, r in by_path.items()},
         "max_abs_err": max_err, "ms": k["ms"], "plain_ms": plain["ms"],
         "bound_ms": roof["bound_ms"], "bound_by": roof["bound_by"],
         "library_ms": None, "ms_spread": k["ms_spread"],
@@ -1548,14 +1519,14 @@ def main(argv=None) -> int:
             "bound_ms": roofl["bound_ms"], "bound_by": roofl["bound_by"]}}, {
         "name": "icm_binary", "route": "cuda",
         "source": "newmsm_tpu_torch/csrc/icm_binary.cu", "replaces": None,
-        "launches": sum(n for _, _, n in by_path.values()),
-        "launches_by_path": {p: n for p, (_, _, n) in by_path.items()},
+        "launches": sum(launches["icm"].values()),
+        "launches_by_path": launches["icm"],
         "bound_by": "the passes x colours chain of cluster barriers",
         "library_ms": None, **icm_times}, {
         "name": "rigid_cost", "route": "cuda",
         "source": "newmsm_tpu_torch/csrc/rigid_cost.cu", "replaces": None,
-        "launches": sum(RIGID_BY_PATH.values()),
-        "launches_by_path": RIGID_BY_PATH, "library_ms": None,
+        "launches": sum(launches["rigid"].values()),
+        "launches_by_path": launches["rigid"], "library_ms": None,
         **rigid_times}]}))
     print(f"chip_smoke: whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -3,12 +3,14 @@
 The pairwise strain-registration path of the JAX package, rewritten on
 torch tensors, with the one Pallas kernel of the JAX package (the pristine
 icosphere locate, ``newmsm_tpu/ops/pallas_locate.py``) written by hand in
-CUDA C++ for Hopper (``csrc/locate_bary.cu``). Layout mirrors the JAX
-package, so every ported module sits at the same relative path:
+CUDA C++ for Hopper (``csrc/locate_bary.cu``), and two more hand-written
+kernels (``csrc/icm_binary.cu``, ``csrc/rigid_cost.cu``). Layout mirrors
+the JAX package, so every ported module sits at the same relative path:
 
   core/      spherical math; host topology (icosphere, mesh) and file I/O
-  ops/       nearest-triangle search + the locate kernel's wrapper,
-             resampling, smoothing, strain, unfolding, similarity
+  ops/       the kernels' wrappers and twins (locate, icm, rigid) over one
+             seam (_build), nearest-triangle search, resampling,
+             smoothing, strain, unfolding, similarity
   reg/       featurespace, discrete model, cost volumes, fusion optimiser,
              rigid alignment, the pairwise multiresolution driver
   eval/      synthetic cohorts (the smoke run's and the tests' input)

@@ -146,7 +146,7 @@ def main(argv=None) -> int:
                 with trace.mark("cuda.init"):
                     torch.cuda.synchronize(device)
                 locate.kernel_tables(device)
-                icm.library()
+                icm.SEAM.library()
             mr = MeshRegistration(device=device)
             if args.verbose:
                 print(f"This is newmsm_tpu_torch on {mr.device}.")

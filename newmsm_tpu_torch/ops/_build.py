@@ -1,5 +1,6 @@
 """Build and load the package's CUDA kernels (nvcc -> shared library with a
-plain C interface -> ctypes).
+plain C interface -> ctypes), and the one seam through which each of them
+joins the port (`Kernel`).
 
 Each source under newmsm_tpu_torch/csrc is compiled at first use for
 sm_90a into <repo>/build/newmsm_tpu_torch/, under a name keyed by a hash of
@@ -11,6 +12,15 @@ nvcc run for later. The compiler's
 output (the `-Xptxas -v` lines: registers, spills) is kept beside the
 library.
 Nothing here runs at import time.
+
+A wrapper module under ops/ holds what is its own (its source, its C
+signatures, its plain PyTorch twin, the shape relations only it checks,
+one public entry) and one `Kernel`, which does the rest the same way for
+every kernel: loads the library with its C functions declared, checks an
+argument (`need`), launches on the tensor's device and PyTorch's current
+stream, picks kernel or twin by device and counts each call. There is no
+fallback from a kernel to its twin: the comparison of the two runs in
+tests/test_torch_cuda.py and in chip_smoke.py, which fail on a mismatch.
 """
 from __future__ import annotations
 
@@ -22,6 +32,8 @@ import pathlib
 import re
 import shutil
 import subprocess
+
+import torch
 
 from .. import trace
 
@@ -113,6 +125,107 @@ def load(source, flags=NVCC_FLAGS, *, mark: str) -> ctypes.CDLL:
     K2's `k2.load`)."""
     with trace.mark(mark):
         return ctypes.CDLL(str(build(source, flags)))
+
+
+# the C types of the signature tables
+PTR, INT, LONG, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_float)
+
+KERNELS: dict = {}      # name -> Kernel: every kernel of the port imported
+
+
+class Kernel:
+    """One hand-written kernel as the port reaches it. `name` is its trace
+    prefix (K1 `locate`), `source` its file under csrc/ (whose stem names
+    the kernel in errors), `entry` the wrapper's public function, `mark`
+    the trace mark of its load, and `functions` its C signatures: {C name:
+    (argtypes, restype)}, a launch function taking the stream last and
+    returning a CUDA error code.
+
+    `tally` is this process's count of the entry's calls: `kernel` and
+    `twin`, and `largest`, the most elements of the lead tensor of one
+    kernel call (K1's queries); `reset_tallies` zeroes every kernel's."""
+
+    def __init__(self, name: str, source: str, entry: str, mark: str,
+                 functions: dict):
+        self.name, self.source, self.entry = name, source, entry
+        self.label = pathlib.Path(source).stem
+        self.mark, self.functions = mark, functions
+        self.tally = {"kernel": 0, "twin": 0, "largest": 0}
+        self._counts = (f"{name}.kernel", f"{name}.twin")
+        self.library = trace.cached()(self._load)
+        KERNELS[name] = self
+
+    def declare(self, lib: ctypes.CDLL) -> ctypes.CDLL:
+        """Declare the C functions of the signature table that `lib` (this
+        kernel's library, or a build of another source with its
+        interface) has; returns lib."""
+        for fname, (argtypes, restype) in self.functions.items():
+            if hasattr(lib, fname):
+                fn = getattr(lib, fname)
+                fn.argtypes, fn.restype = argtypes, restype
+        return lib
+
+    def _load(self) -> ctypes.CDLL:
+        return self.declare(load(self.source, mark=self.mark))
+
+    def need(self, name: str, t, dtype, device, ndim=None,
+             cols=None) -> None:
+        """Raise unless tensor `t`, argument `name`, lies on `device` and
+        has `dtype`, `ndim` dimensions and `cols` columns where given, and
+        is contiguous: TypeError for the dtype, ValueError for the rest.
+        Reads no device value."""
+        where = f"{self.label}: {name}"
+        if t.device != device:
+            raise ValueError(f"{where} is on {t.device}, not {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{where} must be {dtype}, got {t.dtype}")
+        if ndim is not None and t.dim() != ndim:
+            raise ValueError(f"{where} must have {ndim} dimensions, got "
+                             f"shape {tuple(t.shape)}")
+        if cols is not None and t.shape[1] != cols:
+            raise ValueError(f"{where} must have {cols} columns, got shape "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{where} must be contiguous")
+
+    def call(self, function: str, device, *args, lib=None) -> None:
+        """One unchecked launch: C function `function` of the library (or
+        of `lib`) with `args` and PyTorch's current stream, inside
+        `device`; raises on a CUDA error. Counts nothing."""
+        fn = getattr(self.library() if lib is None else lib, function)
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.label} kernel launch failed: CUDA "
+                               f"error {rc}")
+
+    def run(self, lead, twin, kernel, *args):
+        """The entry's one choice: `twin(*args)` when the lead tensor lies
+        on the CPU, `kernel(*args)` (which checks and launches) when on a
+        CUDA card; any other device raises, with no fallback. A call that
+        returns is counted once: the trace count `<name>.kernel` or
+        `<name>.twin`, and the tally."""
+        kind = lead.device.type
+        if kind == "cuda":
+            out = kernel(*args)
+            self.tally["kernel"] += 1
+            self.tally["largest"] = max(self.tally["largest"], lead.numel())
+            trace.count(self._counts[0])
+        elif kind == "cpu":
+            out = twin(*args)
+            self.tally["twin"] += 1
+            trace.count(self._counts[1])
+        else:
+            raise ValueError(f"{self.entry}: unsupported device "
+                             f"{lead.device}")
+        return out
+
+
+def reset_tallies() -> None:
+    """Zero the tally of every kernel."""
+    for k in KERNELS.values():
+        k.tally.update(kernel=0, twin=0, largest=0)
 
 
 def compiler_log(source, flags=NVCC_FLAGS) -> str:

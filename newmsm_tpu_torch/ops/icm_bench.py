@@ -5,7 +5,7 @@ gmsm_s8 last-level shape, S = 8 subjects of K = 2,562, N = 20,496; 5
 starts, 4 passes). chip_smoke.py and tests/test_torch_cuda.py build their
 problems here.
 
-A problem is the argument tuple of reg/optimise/fusion.binary_icm:
+A problem is the argument tuple of ops/icm.py::icm_binary:
 (x, u0, u1, t8, triplets, tables, passes, p4, pairs), in one of the three
 forms the callers pass: 't8' (the triplet paths), 'p4' (regoption 1's
 pairs) and 'group' (t8 + p4 over S subjects, zero unaries). With
@@ -115,9 +115,7 @@ def group_problem(S: int, res: int, device, seed: int = 0,
 def twin(problem) -> tuple:
     """The plain version on a copy of the starts: (xs, es)."""
     x, *rest = problem
-    xs = FU._binary_icm(x.clone(), *rest)
-    u0, u1, t8, trip, _, _, p4, pairs = rest
-    return xs, FU.binary_energy(xs, u0, u1, t8, trip, p4, pairs)
+    return icm.icm_binary_twin(x.clone(), *rest)
 
 
 def kernel(problem) -> tuple:

@@ -154,16 +154,15 @@ def bench_source(source, res: int, n_queries: int,
     """Build `source` (a name under csrc/ or a path to a .cu with the
     kernel's C interface) with `flags` and time it at (res, n_queries)."""
     dev = torch.device("cuda", torch.cuda.current_device())
-    lib = _build.load(source, flags, mark="k1.load")
-    fn = locate.bind(lib)
+    lib = locate.SEAM.declare(_build.load(source, flags, mark="k1.load"))
     tables = locate.kernel_tables(dev)
     if hasattr(lib, "locate_bary_set_tables"):   # each build has its copy
         locate.set_constant_tables(lib, dev)
     px, py, pz = random_queries(n_queries, dev)
     fid = torch.empty(n_queries, dtype=torch.int32, device=dev)
     w0, w1, w2 = (torch.empty_like(px) for _ in range(3))
-    out = time_launches(lambda: locate.launch(fn, px, py, pz, res, tables,
-                                              fid, w0, w1, w2))
+    out = time_launches(lambda: locate.launch(px, py, pz, res, tables, fid,
+                                              w0, w1, w2, lib=lib))
     out["source"] = str(source)
     out.update(static_profile(source, res, n_queries, out, flags))
     return out

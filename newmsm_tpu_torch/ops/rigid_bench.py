@@ -113,16 +113,6 @@ def problem(res: int = 5, channels: int = 2, simval: int = 2, device="cuda",
             float(np.float32(mvd)), simval)
 
 
-def twin(p) -> tuple:
-    """The plain version: (total 0-d, jp (N,)), the total summed chunk by
-    chunk as rigid_cost_twin sums it."""
-    jps = list(_reg_rigid.rigid_terms_twin(*p))
-    total = torch.zeros((), dtype=torch.float32, device=p[0].device)
-    for jp in jps:
-        total = total + jp.sum()
-    return total, torch.cat(jps)
-
-
 def kernel(p) -> tuple:
     """One call of K3: (total 0-d, jp (N,))."""
     return rigid.rigid_terms(*p)
@@ -199,7 +189,7 @@ def compare(p) -> dict:
     tolerances."""
     tk, jk = kernel(p)
     tk2, jk2 = kernel(p)
-    tt, jt = twin(p)
+    tt, jt = rigid.rigid_terms_twin(*p)
     jk64, jt64 = jk.double().cpu().numpy(), jt.double().cpu().numpy()
     gap = np.abs(jk64 - jt64)
     unit = max(1.0, float(np.abs(jt64).max()))
@@ -255,7 +245,8 @@ def time_cost(p, launches: int = 50) -> dict:
         lambda: _reg_rigid.rigid_cost(z, rot, src, tgt, tdat, cos_ang, sigma,
                                       simval), windows=5, launches=launches,
         warmup=10)
-    plain = time_launches(lambda: twin(p), windows=3, launches=5, warmup=2)
+    plain = time_launches(lambda: rigid.rigid_terms_twin(*p), windows=3,
+                          launches=5, warmup=2)
     b = bound(p, neighbourhood_pairs(p))
     return {"kernel_ms": k["ms"], "kernel_ms_spread": k["ms_spread"],
             "evaluation_ms": host["ms"], "plain_ms": plain["ms"],

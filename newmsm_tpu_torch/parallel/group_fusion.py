@@ -49,6 +49,7 @@ import torch
 
 from .. import FIX_NAN, FOLDING, RAD, resolve_device, trace
 from ..core import spherical as sph
+from ..ops import icm
 from ..ops import similarity as simi
 from ..ops.nearest import SearchTables, _search
 from ..ops.strain import triangular_strain
@@ -660,8 +661,8 @@ class GroupFusion:
                                  f"of length {N} required")
             x0 = torch.cat([x0, starts.to(device=self.dev, dtype=torch.int64)])
         zero = torch.zeros(N, dtype=t8.dtype, device=self.dev)
-        xs, es = FU.binary_icm(x0, zero, zero, t8, self.trip_nodes, tables,
-                               st.icm_passes, p4, pair_nodes)
+        xs, es = icm.icm_binary(x0, zero, zero, t8, self.trip_nodes, tables,
+                                st.icm_passes, p4, pair_nodes)
         x = xs[torch.argmin(es)]
         return torch.where(x == 1, torch.full_like(labeling, alpha), labeling)
 

@@ -201,14 +201,15 @@ class GroupMeshRegistration:
             self._write_outputs()
         trace.event("outputs", wall_s=round(span.wall_s, 4))
         if trace.active():
-            # per rank: the locate kernel's launches in this process, the
-            # most queries of one launch, the peak device memory (-1 on the
-            # CPU) and the ICM kernel's launches in this process
+            # per rank, from the kernels' tallies: K1's launches in this
+            # process and the most queries of one, the peak device memory
+            # (-1 on the CPU) and K2's launches in this process
             dev = self.device
             peak = torch.cuda.max_memory_allocated(dev) \
                 if dev.type == "cuda" else -1
+            k1, k2 = locate.SEAM.tally, icm.SEAM.tally
             per_rank = self.comm.all_gather(torch.tensor(
-                [[locate.LAUNCHES, locate.LARGEST, peak, icm.LAUNCHES]],
+                [[k1["kernel"], k1["largest"], peak, k2["kernel"]]],
                 dtype=torch.int64, device=dev))
             trace.event("ranks", devices=self.comm.world,
                         locate_launches=per_rank[:, 0].tolist(),

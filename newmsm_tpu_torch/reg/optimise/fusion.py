@@ -7,10 +7,9 @@ triplet tables, and/or 4-combination pair tables) is minimised by exact parallel
 conflict-free vertex colour groups flip together, each flip judged by its
 true local energy delta, from several starts (keep-all, switch-all, the
 greedy-unary start and `n_restarts` random starts); the lowest-energy
-result wins, the earliest start on ties. On the card one launch of the
-hand-written kernel K2 (ops/icm.py, csrc/icm_binary.cu) runs every
-start's descent and energy (`binary_icm`); on the CPU the plain version
-(`_binary_icm`, `binary_energy`) runs.
+result wins, the earliest start on ties. `ops.icm.icm_binary` runs every
+start's descent and energy: on the card one launch of the hand-written
+kernel K2 (csrc/icm_binary.cu), on the CPU its plain version.
 
 Random starts: the JAX package draws them from jax.random (threefry), which
 torch cannot reproduce. Here they come from an explicit torch.Generator,
@@ -154,83 +153,6 @@ def binary_move_tables(labeling, alpha: int, unary, triplets,
     return u0, u1, t8, p4
 
 
-def _table_sum(table, idx):
-    """sum_r table[r, idx[..., r]] for idx (...,R) -> (...)."""
-    return torch.gather(table.expand(idx.shape + table.shape[-1:]), -1,
-                        idx[..., None])[..., 0].sum(-1)
-
-
-def binary_energy(x, u0, u1, t8, triplets, p4=None, pairs=None):
-    """Binary-subproblem energy at x (...,K) (0=keep, 1=switch) -> (...)."""
-    e = torch.where(x == 1, u1, u0).sum(-1)
-    if t8 is not None:
-        xb = x[..., triplets]                           # (...,T,3)
-        e = e + _table_sum(t8, xb[..., 0] * 4 + xb[..., 1] * 2 + xb[..., 2])
-    if p4 is not None:
-        xp = x[..., pairs]                              # (...,Pr,2)
-        e = e + _table_sum(p4, xp[..., 0] * 2 + xp[..., 1])
-    return e
-
-
-def _own_bit(xb, pos):
-    """xb (S,G,M,W) binary states, pos (G,M) own column -> (S,G,M)."""
-    return torch.gather(xb, 3, pos[None, ..., None].expand(
-        xb.shape[:3] + (1,)))[..., 0]
-
-
-def _binary_icm(x, u0, u1, t8, triplets, tables: FusionTables,
-                icm_passes: int, p4=None, pairs=None):
-    """Exact parallel coordinate descent on the binary move energy from the
-    starts x (S,K): colour groups flip together, each flip judged by its
-    true local energy delta. Monotone non-increasing per start."""
-    for _ in range(icm_passes):
-        for nodes in tables.groups:
-            delta = (u1[nodes] - u0[nodes])[None].expand(x.shape[0], -1)
-            if t8 is not None:
-                it = tables.vert_tri[nodes]             # (G,MT)
-                pc = tables.vert_tri_corner[nodes]
-                tmask = it >= 0
-                it_s = it.clamp(min=0)
-                xb = x[:, triplets[it_s]]               # (S,G,MT,3)
-                base = xb[..., 0] * 4 + xb[..., 1] * 2 + xb[..., 2]
-                w = torch.where(pc == 0, 4, torch.where(pc == 1, 2, 1))
-                idx0 = base - _own_bit(xb, pc) * w
-                idx1 = idx0 + w
-                d_t = (t8[it_s, idx1] - t8[it_s, idx0]) * tmask
-                delta = delta + d_t.sum(-1)
-            if p4 is not None:
-                ip = tables.vert_pair[nodes]            # (G,MP)
-                pe = tables.vert_pair_end[nodes]
-                pmask = ip >= 0
-                ip_s = ip.clamp(min=0)
-                xp = x[:, pairs[ip_s]]                  # (S,G,MP,2)
-                wp = torch.where(pe == 0, 2, 1)
-                i0 = xp[..., 0] * 2 + xp[..., 1] - _own_bit(xp, pe) * wp
-                i1 = i0 + wp
-                d_p = (p4[ip_s, i1] - p4[ip_s, i0]) * pmask
-                delta = delta + d_p.sum(-1)
-            x[:, nodes] = (delta < 0).to(x.dtype)
-    return x
-
-
-def binary_icm(x, u0, u1, t8, triplets, tables, icm_passes: int, p4=None,
-               pairs=None):
-    """`_binary_icm` from the starts x (S,K), overwritten, and each
-    result's `binary_energy`: (xs, es (S,)). CPU tensors run the plain
-    version; CUDA tensors one launch of K2 (ops/icm.py), which needs the
-    flat colour table of `tables` and raises on what it does not take.
-    Under tracing, an `icm.twin` or `icm.kernel` count."""
-    if x.device.type == "cpu":
-        trace.count("icm.twin")
-        xs = _binary_icm(x, u0, u1, t8, triplets, tables, icm_passes, p4,
-                         pairs)
-        return xs, binary_energy(xs, u0, u1, t8, triplets, p4, pairs)
-    out = _icm.icm_binary(x, u0, u1, t8, triplets, tables, icm_passes, p4,
-                          pairs)
-    trace.count("icm.kernel")
-    return out
-
-
 def fusion_binary_solve(labeling, alpha: int, unary, triplets,
                         tables: FusionTables, triplet_combo_fn: Callable,
                         icm_passes: int = 4, n_restarts: int = 2,
@@ -254,8 +176,8 @@ def fusion_binary_solve(labeling, alpha: int, unary, triplets,
                              f"starts of length {K} required")
         x0 = torch.cat([x0, starts.to(device=unary.device,
                                       dtype=torch.int64)])
-    xs, es = binary_icm(x0, u0, u1, t8, triplets, tables, icm_passes, p4,
-                        pairs)
+    xs, es = _icm.icm_binary(x0, u0, u1, t8, triplets, tables, icm_passes,
+                             p4, pairs)
     # the keep-all start never increases the energy; prefer the earliest
     # start on ties (argmin returns the first match) so sweeps stay monotone
     return xs[torch.argmin(es)]

@@ -15,6 +15,7 @@ from newmsm_tpu.reg.optimise import coloring as JCOL
 from newmsm_tpu.reg.optimise import fusion as JFU
 
 from newmsm_tpu_torch import convert
+from newmsm_tpu_torch.ops import icm as ticm
 from newmsm_tpu_torch.ops.nearest import build_tables as t_build_tables
 from newmsm_tpu_torch.reg import costs as TC
 from newmsm_tpu_torch.reg import model as TM
@@ -346,8 +347,9 @@ def test_pair_fusion_binary_solve_is_exact_on_12_nodes():
             labeling, alpha, unary, none, tm.fusion_tables, zero,
             starts=torch.randint(0, 2, (2, K), generator=gen), pairs=pairs,
             pair_combo_fn=pfn)
-        e = float(TFU.binary_energy(x, u0, u1, t8, none, p4, pairs))
-        e_min = float(TFU.binary_energy(X, u0, u1, t8, none, p4, pairs).min())
+        e = float(ticm.binary_energy(x, u0, u1, t8, none, p4, pairs))
+        e_min = float(ticm.binary_energy(X, u0, u1, t8, none, p4,
+                                         pairs).min())
         assert e == pytest.approx(e_min, rel=1e-6, abs=1e-6), alpha
         labeling = torch.where(x == 1, torch.full_like(labeling, alpha),
                                labeling)

@@ -47,11 +47,11 @@ def test_kernel_matches_twin_on_card(cuda, res):
     g = torch.Generator().manual_seed(res)
     q = (torch.randn((1 << 16, 3), generator=g) * 100.0).to(cuda)
     px, py, pz = (q[:, i].contiguous() for i in range(3))
-    before = locate.LAUNCHES
+    before = locate.SEAM.tally["kernel"]
     fid_k, *wk = locate.locate_bary(px, py, pz, res)
     fid_p, *wp = locate.locate_bary_reference(px, py, pz, res)
     torch.cuda.synchronize()
-    assert locate.LAUNCHES == before + 1
+    assert locate.SEAM.tally["kernel"] == before + 1
     assert fid_k.dtype == torch.int32 and fid_k.device == q.device
     assert (fid_k != fid_p).sum().item() <= 1e-4 * q.shape[0]
     np.testing.assert_allclose(_positions(res, fid_k, wk),
@@ -280,14 +280,14 @@ def test_label_deformed_maps_go_through_the_kernel(cuda):
         tabs = build_tables(dg.coords, dg.faces, tri_idx, dev)
         ttm = build_tables(tm.coords, tm.faces, tm.adjacency[2], dev)
         assert ttm.pristine_res == res
-        before = locate.LAUNCHES
+        before = locate.SEAM.tally["kernel"]
         got[dev.type] = rsp.label_deformed_maps(
             f32(warped), f32(data), tabs.faces,
             torch.as_tensor(tri_idx.astype(np.int64)).to(dev),
             tabs.ring_faces, tabs.ring_verts, f32(sg.samples), f32(sg.centre),
             ttm, f32(tm.vertex_area()),
             cap=rsp._adaptive_cap(dg.nvertices, tm.nvertices)).cpu().numpy()
-        launched = locate.LAUNCHES - before
+        launched = locate.SEAM.tally["kernel"] - before
         assert launched == (len(sg.samples) if dev.type == "cuda" else 0)
     err = np.abs(got["cuda"] - got["cpu"])
     assert err.max() < 1e-3, err.max()
@@ -456,9 +456,9 @@ def test_icm_kernel_is_the_twin_bit_for_bit_on_integer_tables(cuda, form,
     from newmsm_tpu_torch.ops import icm, icm_bench
     p = _icm_problem(form, res, S, cuda, integer=True)
     assert (p[5].vert_tri < 0).any() or form == "p4"
-    before = icm.LAUNCHES
+    before = icm.SEAM.tally["kernel"]
     got = icm_bench.compare(p)
-    assert icm.LAUNCHES == before + 2
+    assert icm.SEAM.tally["kernel"] == before + 2
     assert got["xs_equal"] and got["es_equal"], got
     assert got["repeats"], got
 
@@ -469,13 +469,12 @@ def test_icm_kernel_repeats_itself_on_real_valued_tables(cuda, form, res, S):
     """Gaussian tables: two launches on the same inputs give the same bits
     (no atomics), and the kernel's energies are those of its own
     descents (binary_energy of its xs, to 1e-5 relative)."""
-    from newmsm_tpu_torch.ops import icm_bench
-    from newmsm_tpu_torch.reg.optimise import fusion as FU
+    from newmsm_tpu_torch.ops import icm, icm_bench
     p = _icm_problem(form, res, S, cuda, integer=False, seed=1)
     x, u0, u1, t8, trip, _, _, p4, pairs = p
     assert icm_bench.compare(p)["repeats"]
     xs, es = icm_bench.kernel(p)
-    want = FU.binary_energy(xs, u0, u1, t8, trip, p4, pairs).double()
+    want = icm.binary_energy(xs, u0, u1, t8, trip, p4, pairs).double()
     torch.testing.assert_close(es.double(), want, rtol=1e-5, atol=1e-5)
 
 
@@ -487,7 +486,7 @@ def test_icm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     from newmsm_tpu_torch.ops import icm
     x, u0, u1, t8, trip, tables, passes, p4, pairs = _icm_problem(
         "t8", 2, 1, cuda, integer=True)
-    before = icm.LAUNCHES
+    before = icm.SEAM.tally["kernel"]
     with pytest.raises(TypeError):
         icm.icm_binary(x, u0.double(), u1, t8, trip, tables, passes)
     with pytest.raises(ValueError):
@@ -495,20 +494,19 @@ def test_icm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         icm.icm_binary(x, u0, u1, t8.t().contiguous().t(), trip, tables,
                        passes)
-    assert icm.LAUNCHES == before
+    assert icm.SEAM.tally["kernel"] == before
     es = torch.empty(0, dtype=torch.float32, device=cuda)
     with pytest.raises(RuntimeError, match="CUDA error"):
         icm.launch(x[:0], es, u0, u1, t8, trip, tables, passes)
 
 
 def _recorded_moves(monkeypatch):
-    """Every binary_icm call of a run, checked as it happens: the kernel's
+    """Every icm_binary call of a run, checked as it happens: the kernel's
     chosen start (first minimum) against the plain version's from the
     same starts and tables, on the card."""
-    from newmsm_tpu_torch.ops import icm_bench
-    from newmsm_tpu_torch.reg.optimise import fusion as FU
+    from newmsm_tpu_torch.ops import icm, icm_bench
     moves = []
-    orig = FU.binary_icm
+    orig = icm.icm_binary
 
     def spy(x, *rest):
         problem = (x.clone(), *rest)
@@ -520,7 +518,7 @@ def _recorded_moves(monkeypatch):
                       "same_x": bool(torch.equal(xs[ik], xt[it])),
                       "rel": abs(e_k - e_t) / max(abs(e_t), 1e-30)})
         return xs, es
-    monkeypatch.setattr(FU, "binary_icm", spy)
+    monkeypatch.setattr(icm, "icm_binary", spy)
     return moves
 
 
@@ -570,12 +568,12 @@ def test_icm_kernel_on_the_moves_of_a_real_ico4_strain_level(
     conf = tmp_path / "strain.conf"
     conf.write_text(_ICO4_STRAIN)
     _, datasets, template_data = synth_cohort(6, 1, seed=0)
-    before = icm.LAUNCHES
+    before = icm.SEAM.tally["kernel"]
     res = register_dataset(["s"], Mesh.from_icosphere(6), template_data,
                            str(conf), {"s": datasets[0]},
                            outdir=str(tmp_path) + "/", device=cuda)
     assert not res.failed, res.failed
-    assert icm.LAUNCHES - before == len(moves) > 0
+    assert icm.SEAM.tally["kernel"] - before == len(moves) > 0
     _assert_moves_agree(moves, 2562)
 
 
@@ -618,7 +616,7 @@ def test_icm_kernel_on_the_alpha_steps_of_a_real_group_level(
     _assert_moves_agree(moves, 8 * 2562)
 
 
-# K3 (csrc/rigid_cost.cu) against its plain version, reg/rigid.py::
+# K3 (csrc/rigid_cost.cu) against its plain version, ops/rigid.py::
 # rigid_terms_twin: (res, channels, simval, problem options). AFFINE's
 # shape (ico-5, D = 2, the cosine), D = 10 in both similarities, N != Nt
 # with the plain version's ragged last chunk, every source on a target
@@ -644,9 +642,9 @@ def test_rigid_kernel_matches_its_twin_and_repeats_its_bits(cuda, res,
     call."""
     from newmsm_tpu_torch.ops import rigid, rigid_bench
     p = rigid_bench.problem(res, channels, simval, cuda, **opts)
-    before = rigid.LAUNCHES
+    before = rigid.SEAM.tally["kernel"]
     got = rigid_bench.compare(p)
-    assert rigid.LAUNCHES == before + 2
+    assert rigid.SEAM.tally["kernel"] == before + 2
     assert got["repeats"], got
     assert got["unexplained"] == 0, got
     assert got["total_gap"] <= rigid_bench.TOTAL_RTOL, got
@@ -665,7 +663,7 @@ def test_rigid_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     rot, src, tgt, tdat, cos_ang, sigma, simval = rigid_bench.problem(
         3, 2, 2, cuda)
     rest = (cos_ang, sigma, simval)
-    before = rigid.LAUNCHES
+    before = rigid.SEAM.tally["kernel"]
     with pytest.raises(TypeError):
         rigid.rigid_terms(rot.double(), src, tgt, tdat, *rest)
     with pytest.raises(ValueError):
@@ -676,7 +674,7 @@ def test_rigid_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         rigid.rigid_terms(rot, src[:, :-1].contiguous(), tgt, tdat, *rest)
     with pytest.raises(ValueError):
         rigid.rigid_terms(rot, src, tgt, tdat[:1].contiguous(), *rest)
-    assert rigid.LAUNCHES == before
+    assert rigid.SEAM.tally["kernel"] == before
     out = torch.empty(1, dtype=torch.float32, device=cuda)
     scratch = torch.empty(16, dtype=torch.float32, device=cuda)
     ticket = torch.empty(1, dtype=torch.int32, device=cuda)
@@ -711,18 +709,19 @@ def test_rigid_align_through_the_kernel_is_rigid_align_through_its_twin(
                                      iters=10, simval=2, device=cuda)
         return out, span.counters
 
-    before = rigid.LAUNCHES
+    before = rigid.SEAM.tally["kernel"]
     out_k, c = align()
-    assert c["rigid.kernel"] == c["cost_evals"] == rigid.LAUNCHES - before
+    launched = rigid.SEAM.tally["kernel"] - before
+    assert c["rigid.kernel"] == c["cost_evals"] == launched
     assert "rigid.twin" not in c
-    monkeypatch.setattr(TR, "rigid_cost", TR.rigid_cost_twin)
+    monkeypatch.setattr(rigid, "rigid_terms", rigid.rigid_terms_twin)
     out_t, c_t = align()
-    assert rigid.LAUNCHES - before == c["cost_evals"]
+    assert rigid.SEAM.tally["kernel"] - before == c["cost_evals"]
     np.testing.assert_allclose(out_k.coords, out_t.coords, atol=1e-2)
 
     def cost(mesh):
         rot = torch.as_tensor(mesh.coords, dtype=torch.float32).to(cuda)
-        return float(TR.rigid_cost_twin(torch.zeros(3, device=cuda), rot,
-                                        src, tgt, tdat, cos_ang, sigma, 2))
+        return float(rigid.rigid_terms_twin(rot, src, tgt, tdat, cos_ang,
+                                            sigma, 2)[0])
     np.testing.assert_allclose(cost(out_k), cost(out_t), rtol=1e-4)
     assert cost(out_k) > cost(sphere)

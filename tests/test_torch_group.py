@@ -486,7 +486,7 @@ def test_tiny_case_chosen_energy_not_above_any_start():
     labeling = torch.zeros(S * K, dtype=torch.int64)
     zero = torch.zeros(S * K)
     total = float(fusion.energy(state, maps, partner, labeling))
-    from newmsm_tpu_torch.reg.optimise import fusion as TFU
+    from newmsm_tpu_torch.ops import icm
     for alpha in range(L):
         t8, p4 = fusion.build_tables_for(state, maps, partner,
                                          labeling.reshape(S, K), alpha)
@@ -494,12 +494,12 @@ def test_tiny_case_chosen_energy_not_above_any_start():
                                 labeling, alpha)
         # a node already at alpha costs the same kept or switched
         x = (new != labeling).to(torch.int64)
-        chosen = float(TFU.binary_energy(x, zero, zero, t8,
+        chosen = float(icm.binary_energy(x, zero, zero, t8,
                                          fusion.trip_nodes, p4, pair_nodes))
         starts = torch.cat([torch.zeros(1, S * K, dtype=torch.int64),
                             torch.ones(1, S * K, dtype=torch.int64),
                             fusion.starts_for(alpha)])
-        es = np_(TFU.binary_energy(starts, zero, zero, t8, fusion.trip_nodes,
+        es = np_(icm.binary_energy(starts, zero, zero, t8, fusion.trip_nodes,
                                    p4, pair_nodes))
         assert chosen <= es.min() + 1e-5 * abs(es.min()), (alpha, chosen, es)
         labeling = new

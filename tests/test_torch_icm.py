@@ -1,6 +1,7 @@
 """The binary-ICM kernel's wrapper (newmsm_tpu_torch/ops/icm.py, K2) and
-what feeds it, on the CPU: CPU tensors go to the plain version and never
-load the library; the wrapper refuses what the kernel does not take; the
+what feeds it, on the CPU: CPU tensors go to the plain version (the twin,
+in the same module) and never load the library, tensors on any other
+device raise; the wrapper refuses what the kernel does not take; the
 flat colour tables the kernel reads are the concatenated colour groups;
 a traced CPU run counts one `icm.twin` a fusion move or alpha step and no
 `icm.kernel`, and the group driver's `ranks` event reports K2's launches
@@ -18,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from newmsm_tpu_torch import convert
+from newmsm_tpu_torch import convert, trace
 from newmsm_tpu_torch.core.mesh import Mesh
 from newmsm_tpu_torch.ops import _build, icm, icm_bench
 from newmsm_tpu_torch.parallel import group_fusion as GF
@@ -38,20 +39,21 @@ def _problem(form, integer=False):
 @pytest.mark.parametrize("form", FORMS)
 def test_cpu_tensors_run_the_twin_and_never_load_the_library(form,
                                                             monkeypatch):
-    """fusion.binary_icm on CPU tensors: the plain descent and energy,
-    bit for bit, no launch counted, the library never asked for."""
-    monkeypatch.setattr(icm, "LAUNCHES", 0)
-    monkeypatch.setattr(icm, "library", lambda: pytest.fail(
+    """icm.icm_binary on CPU tensors: the plain descent and energy, bit
+    for bit, one twin call and no launch counted, the library never asked
+    for."""
+    monkeypatch.setattr(icm.SEAM, "tally", dict(kernel=0, twin=0, largest=0))
+    monkeypatch.setattr(icm.SEAM, "library", lambda: pytest.fail(
         "kernel library requested for CPU tensors"))
     p = _problem(form)
     x0 = p[0].clone()
-    xs, es = FU.binary_icm(*p)
-    want_x = FU._binary_icm(x0, *p[1:])
+    xs, es = icm.icm_binary(*p)
+    want_x = icm._binary_icm(x0, *p[1:])
     x, u0, u1, t8, trip, _, _, p4, pairs = p
     assert torch.equal(xs, want_x)
-    assert torch.equal(es, FU.binary_energy(want_x, u0, u1, t8, trip, p4,
-                                            pairs))
-    assert icm.LAUNCHES == 0
+    assert torch.equal(es, icm.binary_energy(want_x, u0, u1, t8, trip, p4,
+                                             pairs))
+    assert icm.SEAM.tally == dict(kernel=0, twin=1, largest=0)
 
 
 def _bad(name):
@@ -104,14 +106,22 @@ def test_the_real_arguments_pass_the_check(form):
 
 
 def test_tensors_on_neither_cpu_nor_cuda_raise_and_nothing_falls_back():
-    """A device the kernel does not serve raises in the wrapper; there is
-    no fallback to the plain version."""
+    """CPU tensors run the twin at the wrapper; a device the kernel does
+    not serve (meta) raises there, with no fallback to the plain version,
+    and counts nothing."""
     p = _problem("t8")
-    with pytest.raises(ValueError, match="unsupported device"):
-        icm.icm_binary(*p)
+    x0 = p[0].clone()
+    xs, es = icm.icm_binary(*p)
+    want = icm.icm_binary_twin(x0, *p[1:])
+    assert torch.equal(xs, want[0]) and torch.equal(es, want[1])
     meta = [t.to("meta") if isinstance(t, torch.Tensor) else t for t in p]
-    with pytest.raises(ValueError, match="unsupported device"):
-        FU.binary_icm(*meta)
+    before = dict(icm.SEAM.tally)
+    with trace.run(None, "cpu", on=True):
+        with trace.span("fusion") as span:
+            with pytest.raises(ValueError, match="unsupported device"):
+                icm.icm_binary(*meta)
+    assert span.counters == {}
+    assert icm.SEAM.tally == before
 
 
 def _flat_equal(tables):
@@ -345,25 +355,43 @@ def _span(counters):
     return {"event": "span", "name": "fusion", "counters": counters}
 
 
+def _ranks(icm_launches, locate=(7,), rigid=(4,)):
+    return [{"locate": {"kernel": n, "twin": 0, "largest": 9},
+             "icm": {"kernel": m, "twin": 0, "largest": 9},
+             "rigid": {"kernel": r, "twin": 0, "largest": 9}}
+            for n, m, r in zip(locate * len(icm_launches), icm_launches,
+                               rigid * len(icm_launches))]
+
+
 @pytest.mark.parametrize("case", ["one_rank", "by_rank", "short_rank",
-                                  "twin", "no_kernel_count"])
+                                  "twin", "no_kernel_count", "k1_count",
+                                  "k1_twin", "k3_short"])
 def test_chip_smoke_holds_each_path_to_one_launch_a_move(case):
-    """chip_smoke.check_icm: each rank's K2 launches equal the run's move
-    marks, the spans count as many `icm.kernel` and no `icm.twin`;
-    anything else fails the smoke run."""
+    """chip_smoke.check_kernels: each rank's K2 launches equal the run's
+    move marks, the spans count as many `icm.kernel` and no `icm.twin`;
+    rank 0's K1 launches equal the `locate.kernel` counts, with no
+    `locate.twin`; K3 launches once a `cost_evals` count; anything else
+    fails the smoke run."""
     import chip_smoke
     events = [{"event": "iter"},
-              _span({"fusion.move": {"n": 3, "s": 0.1}, "icm.kernel": 3}),
-              _span({"fusion.move": {"n": 2, "s": 0.1}, "icm.kernel": 2})]
-    launches = {"one_rank": 5, "by_rank": [5, 5], "short_rank": [5, 4],
-                "twin": 5, "no_kernel_count": 5}[case]
+              _span({"fusion.move": {"n": 3, "s": 0.1}, "icm.kernel": 3,
+                     "locate.kernel": 4, "cost_evals": 4,
+                     "rigid.kernel": 4}),
+              _span({"fusion.move": {"n": 2, "s": 0.1}, "icm.kernel": 2,
+                     "locate.kernel": 3})]
+    launches = {"one_rank": [5], "by_rank": [5, 5],
+                "short_rank": [5, 4]}.get(case, [5])
     if case == "twin":
         events.append(_span({"icm.twin": 1}))
     if case == "no_kernel_count":
         del events[1]["counters"]["icm.kernel"]
+    if case == "k1_twin":
+        events.append(_span({"locate.twin": 1}))
+    ranks = _ranks(launches, locate=(8 if case == "k1_count" else 7,),
+                   rigid=(3 if case == "k3_short" else 4,))
     assert chip_smoke.span_total(events, "fusion.move") == 5
     if case in ("one_rank", "by_rank"):
-        chip_smoke.check_icm("path", launches, events, "fusion.move")
+        chip_smoke.check_kernels("path", ranks, events, "fusion.move")
     else:
         with pytest.raises(chip_smoke.SmokeFailure):
-            chip_smoke.check_icm("path", launches, events, "fusion.move")
+            chip_smoke.check_kernels("path", ranks, events, "fusion.move")

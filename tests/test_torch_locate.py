@@ -18,6 +18,7 @@ from newmsm_tpu.core.mesh import Mesh
 from newmsm_tpu.ops import nearest as jnst
 from newmsm_tpu.ops import pallas_locate as PL
 
+from newmsm_tpu_torch import trace
 from newmsm_tpu_torch.core import spherical as tsph
 from newmsm_tpu_torch.ops import locate as tloc
 from newmsm_tpu_torch.ops import nearest as tnst
@@ -137,8 +138,9 @@ def test_locate_partition_of_unity_at_vertices():
 def test_locate_wrapper_dispatches_to_twin_on_cpu(monkeypatch):
     """On CPU tensors the wrapper runs the plain version, never the kernel
     (the library is not even loaded) and counts no launch."""
-    monkeypatch.setattr(tloc, "LAUNCHES", 0)
-    monkeypatch.setattr(tloc, "_library", lambda: pytest.fail(
+    monkeypatch.setattr(tloc.SEAM, "tally", dict(kernel=0, twin=0,
+                                                 largest=0))
+    monkeypatch.setattr(tloc.SEAM, "library", lambda: pytest.fail(
         "kernel library requested for CPU tensors"))
     q = torch.from_numpy(unit_queries(100))
     out = tloc.locate_bary(q[:, 0].contiguous(), q[:, 1].contiguous(),
@@ -146,7 +148,30 @@ def test_locate_wrapper_dispatches_to_twin_on_cpu(monkeypatch):
     ref = tloc.locate_bary_reference(q[:, 0], q[:, 1], q[:, 2], 2)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
-    assert tloc.LAUNCHES == 0
+    assert tloc.SEAM.tally["kernel"] == 0
+
+
+def test_traced_cpu_locate_counts_one_twin_a_call(monkeypatch):
+    """Under tracing, each locate_bary call on CPU tensors is one
+    `locate.twin` count of the enclosing span and one twin call of the
+    kernel's tally, never a `locate.kernel`, and never asks for the
+    library; a meta tensor raises and counts nothing."""
+    monkeypatch.setattr(tloc.SEAM, "tally", dict(kernel=0, twin=0,
+                                                 largest=0))
+    monkeypatch.setattr(tloc.SEAM, "library", lambda: pytest.fail(
+        "kernel library requested for CPU tensors"))
+    q = torch.from_numpy(unit_queries(64))
+    px, py, pz = (q[:, i].contiguous() for i in range(3))
+    with trace.run(None, "cpu", on=True):
+        with trace.span("unary") as span:
+            for res in (1, 2, 3):
+                tloc.locate_bary(px, py, pz, res)
+            with pytest.raises(ValueError, match="unsupported device"):
+                tloc.locate_bary(px.to("meta"), py.to("meta"),
+                                 pz.to("meta"), 2)
+    assert span.counters["locate.twin"] == 3
+    assert "locate.kernel" not in span.counters
+    assert tloc.SEAM.tally == dict(kernel=0, twin=3, largest=0)
 
 
 def test_kernel_source_and_build_command():

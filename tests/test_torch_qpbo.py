@@ -43,6 +43,7 @@ from newmsm_tpu.reg.optimise import fusion as JFU
 
 from newmsm_tpu_torch import convert
 from newmsm_tpu_torch.core.mesh import Mesh
+from newmsm_tpu_torch.ops import icm
 from newmsm_tpu_torch.parallel import group_fusion as TGF
 from newmsm_tpu_torch.reg import model as TM
 from newmsm_tpu_torch.reg.optimise import fusion as FU
@@ -86,7 +87,7 @@ def icm_calls():
     """Record the inputs of every call of the port's `_binary_icm` (the
     starts before the descent overwrites them)."""
     calls = []
-    orig = FU._binary_icm
+    orig = icm._binary_icm
 
     def spy(x, u0, u1, t8, triplets, tables, icm_passes, p4=None,
             pairs=None):
@@ -95,11 +96,11 @@ def icm_calls():
                           passes=icm_passes))
         return orig(x, u0, u1, t8, triplets, tables, icm_passes, p4, pairs)
 
-    FU._binary_icm = spy
+    icm._binary_icm = spy
     try:
         yield calls
     finally:
-        FU._binary_icm = orig
+        icm._binary_icm = orig
 
 
 @functools.partial(jax.jit, static_argnames="passes")
@@ -213,7 +214,7 @@ def pairwise_moves(regmode, outers=2, sweeps=2, cp_res=2, target_res=4):
                         pairs=pairs, pair_combo_fn=pfn)
                 u0, u1, t8, p4 = FU.binary_move_tables(
                     labeling, alpha, unary, triplets, tfn, pairs, pfn)
-                e = float(FU.binary_energy(x, u0, u1, t8, triplets, p4,
+                e = float(icm.binary_energy(x, u0, u1, t8, triplets, p4,
                                            pairs))
                 yield x, e, (
                     u0.double().numpy(), u1.double().numpy(),
@@ -271,7 +272,7 @@ def group_moves(S=3):
             new = fusion.alpha_step(state, maps, partner, tables,
                                     pair_nodes, labeling, alpha)
         x = (new == alpha).to(torch.int64)
-        e = float(FU.binary_energy(x, torch.zeros(S * K), torch.zeros(S * K),
+        e = float(icm.binary_energy(x, torch.zeros(S * K), torch.zeros(S * K),
                                    t8, trip, p4, pair_nodes))
         yield x, e, (zero, zero, t8.double().numpy(), trip.numpy(),
                      p4.double().numpy(), pair_nodes.numpy()), calls[0]

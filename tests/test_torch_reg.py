@@ -15,6 +15,7 @@ from newmsm_tpu.reg.featurespace import Featurespace
 from newmsm_tpu.reg.optimise import fusion as JFU
 
 from newmsm_tpu_torch import convert
+from newmsm_tpu_torch.ops import icm as ticm
 from newmsm_tpu_torch.reg import costs as TC
 from newmsm_tpu_torch.reg import model as TM
 from newmsm_tpu_torch.reg import rigid as TR
@@ -234,8 +235,8 @@ def test_fusion_binary_solve_is_exact_on_12_nodes():
                                     tm.fusion_tables, tfn,
                                     starts=torch.randint(0, 2, (2, K),
                                                          generator=gen))
-        e = float(TFU.binary_energy(x, u0, u1, t8, trip))
-        e_min = float(TFU.binary_energy(X, u0, u1, t8, trip).min())
+        e = float(ticm.binary_energy(x, u0, u1, t8, trip))
+        e_min = float(ticm.binary_energy(X, u0, u1, t8, trip).min())
         assert e == pytest.approx(e_min, rel=1e-6, abs=1e-6), alpha
         labeling = torch.where(x == 1, torch.full_like(labeling, alpha),
                                labeling)

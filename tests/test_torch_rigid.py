@@ -1,9 +1,9 @@
 """AFFINE's rigid cost (newmsm_tpu_torch/reg/rigid.py) on the CPU: CPU
-tensors run the plain version, bit for bit the cost as it was written
-before the hand-written kernel K3 (csrc/rigid_cost.cu) took the card's
-path; the kernel's wrapper (ops/rigid.py) refuses what the kernel does not
-take without reading a device value, and never falls back to the plain
-version. The kernel itself is compared with the plain version on the card
+tensors run the plain version (the twin, in ops/rigid.py beside the
+kernel's wrapper), bit for bit the cost as it was written before the
+hand-written kernel K3 (csrc/rigid_cost.cu) took the card's path; the
+wrapper refuses what the kernel does not take without reading a device
+value, and never falls back to the plain version. The kernel itself is compared with the plain version on the card
 (tests/test_torch_cuda.py)."""
 from __future__ import annotations
 
@@ -87,10 +87,12 @@ def test_rigid_cost_on_cpu_is_the_cost_before_k3_bit_for_bit(channels,
         assert got.dtype == torch.float32 and got.dim() == 0
         want = _cost_before_k3(*args)
         assert torch.equal(got, want), (float(got), float(want))
-        got = TR.rigid_cost_twin(*args, chunk=300)
+        rot_a = sph.apply_euler(rot, *angles)
+        got = K3.rigid_terms_twin(rot_a, src, tgt, tdat, cos_ang, sigma,
+                                  simval, chunk=300)[0]
         want = _cost_before_k3(*args, chunk=300)
         assert torch.equal(got, want), (float(got), float(want))
-    total, jp = rigid_bench.twin(p)
+    total, jp = K3.rigid_terms_twin(*p)
     assert torch.equal(total, _cost_before_k3(torch.zeros(3), *p))
     assert jp.shape == (rot.shape[0],)
     if opts.get("northern_targets"):
@@ -125,7 +127,7 @@ def _faulty(fault, i):
             # the kernel's product puts the edge target just outside
             cos = float(np.nextafter(np.float32(p[4]), np.float32(1)))
             p = p[:4] + (cos,) + p[5:]
-        total, jp = rigid_bench.twin(p)
+        total, jp = K3.rigid_terms_twin(*p)
         jp = jp.clone()
         n = jp.shape[0]
         tail = torch.arange(n - n % _BLOCK, n)
@@ -231,13 +233,15 @@ def test_rigid_check_refuses_without_reading_a_device_value(case, error):
 
 
 def test_k3_refuses_cpu_and_meta_tensors_without_a_fallback():
-    """The kernel's entry takes only CUDA tensors, and rigid_cost sends
-    every tensor that is not on the CPU to it: a meta tensor raises there
-    rather than running the plain version. Nothing is counted."""
+    """The kernel's entry runs the twin on CPU tensors and the kernel on
+    CUDA tensors, and rigid_cost sends every tensor to it: a meta tensor
+    raises there rather than running the plain version. Nothing is
+    counted."""
     p = rigid_bench.problem(2, 2, 2, "cpu")
-    before = K3.LAUNCHES
-    with pytest.raises(ValueError, match="unsupported device"):
-        K3.rigid_terms(*p)
+    total, jp = K3.rigid_terms(*p)
+    want = K3.rigid_terms_twin(*p)
+    assert torch.equal(total, want[0]) and torch.equal(jp, want[1])
+    before = dict(K3.SEAM.tally)
     rot, src, tgt, tdat, cos_ang, sigma, simval = p
     meta = [t.to("meta") for t in (rot, src, tgt, tdat)]
     with trace.run(None, "cpu", on=True) as tracer:
@@ -248,7 +252,7 @@ def test_k3_refuses_cpu_and_meta_tensors_without_a_fallback():
         assert tracer is not None
     assert "rigid.twin" not in span.counters
     assert "rigid.kernel" not in span.counters
-    assert K3.LAUNCHES == before
+    assert K3.SEAM.tally == before
 
 
 def test_rigid_align_on_cpu_counts_one_twin_call_a_cost_evaluation():

@@ -79,7 +79,7 @@ def test_every_module_and_chip_smoke_import_without_the_jax_package():
     for new in ("parallel.group_fusion", "reg.group", "pipelines.gmsm",
                 "pipelines.cohort", "eval.reports", "tools.resample_tools",
                 "core.sparse", "parallel.multihost",
-                "parallel.pairwise_sharding", "tools.group_bench",
+                "parallel.pairwise_sharding",
                 "tools.parity", "tools.flagship"):
         assert "newmsm_tpu_torch." + new in mods, new
     proc = _run("import importlib\n"
@@ -91,21 +91,6 @@ def test_every_module_and_chip_smoke_import_without_the_jax_package():
                 "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
                 "('jax', 'jaxlib', 'newmsm_tpu'))\n"
                 "assert not bad, bad\n")
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-
-
-def test_group_bench_writes_the_smoke_cohort_and_config(tmp_path):
-    """tools.group_bench times the CLI on chip_smoke.py's group run: the
-    same tutorial config text, and list files of every subject."""
-    proc = _run("import chip_smoke\n"
-                "from newmsm_tpu_torch.tools import group_bench as gb\n"
-                "assert gb.TUTORIAL_CONFIG.format(\n"
-                "    iters=chip_smoke.GROUP_ITERS) == chip_smoke.GROUP_CONFIG\n"
-                f"args = gb.write_inputs({str(tmp_path)!r}, 2, 2, '1,1,1')\n"
-                "lists = [args[args.index(f) + 1] for f in ('--meshes', "
-                "'--data')]\n"
-                "assert all(len(open(p).read().split()) == 2 for p in lists)\n"
-                "assert args[-2:] == ['--device', 'cuda']\n")
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
