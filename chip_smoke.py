@@ -9,9 +9,9 @@ no result line:
   1. device   require CUDA; print the card's name and power limit
               (nvidia-smi) and the torch / CUDA versions;
   2. build    compile the kernels (csrc/locate_bary.cu, K1,
-              csrc/icm_binary.cu, K2, and csrc/rigid_cost.cu, K3) with
-              nvcc; print their ptxas lines (registers, spills) and K1's
-              resident grid;
+              csrc/icm_binary.cu, K2, csrc/rigid_cost.cu, K3, and
+              csrc/label_forward.cu, K4) with nvcc; print their ptxas
+              lines (registers, spills) and K1's resident grid;
   3. kernel   K1 against its plain PyTorch version on the card:
               2^20 random directions plus every vertex of ico-res, res in
               {0,2,4,6}; row sums, reconstructed positions, vertex mass and
@@ -28,6 +28,10 @@ no result line:
               rigid_terms_twin) at AFFINE's ico-5 shape and at the edges of
               its arithmetic: each source's jp and the total within
               ops/rigid_bench.py's tolerances, two calls bit for bit;
+              then K4 against its plain version on the CPU (ops/labelmap.py
+              label_forward_twin) at the gMSM levels' data grids ico-4/5/6
+              with their 19/19/18 labels and the ico-6 template: triangles
+              and weights within ops/labelmap_bench.py's tolerances;
   4. main     the pairwise strain-registration path through the CLI
               (config_standard_MSM_strain, --it cut to 10,3,3,3) on an ico-6
               synthetic subject; checks outputs, folds, the sulc CC gain and
@@ -72,8 +76,8 @@ no result line:
               one card a rank, when there are two cards); energies,
               dedrifted spheres, mean / stdev maps and stats bitwise equal,
               0 folds, patch_overflow 0 at each level's end, the mean
-              pairwise CC raised, K1's launches summed over the ranks equal
-              to the one-rank run's; prints the pair-block batches of each
+              pairwise CC raised, K1's and K4's launches summed over the
+              ranks equal to the one-rank run's; prints the pair-block batches of each
               level (S = 8 has 28 blocks: the chunked branch), per-rank peak
               memory, setup_s / opt_s of each iteration and the walls;
  12. timing   K1 and its plain version at the shape of the main
@@ -85,7 +89,9 @@ no result line:
               the gmsm_s8 last-level shape, beside the chain of passes x
               colours block barriers; then K3 and its plain version a cost
               evaluation at ico-5 (D = 2 cosine, D = 10 SSD), beside the
-              bound of the call's gates and neighbourhood pairs.
+              bound of the call's gates and neighbourhood pairs; then K4
+              and its plain version on the card a call at the gMSM levels'
+              data grids, beside the bound of the call's distances.
 
 Phases 4 to 9 and phase 11's one-rank run each zero the kernels' tallies
 (ops/_build.py) before the call and read them after; the ranks of phases
@@ -94,8 +100,10 @@ each rank. On every path each kernel is held to its metrics file
 (`check_kernels`): rank 0's launches equal its `<kernel>.kernel` counts,
 nothing counts `<kernel>.twin`, every rank launched K1, and every rank
 launched K2 once a fusion move or alpha step and K3 once a cost
-evaluation of AFFINE (none on the paths without it). Any mismatch fails
-the run, and so does a failing rank.
+evaluation of AFFINE (none on the paths without it), and every rank of a
+group path launched K4 once a subject it owns and a `group.maps` span
+(none on the pairwise paths). Any mismatch fails the run, and so does a
+failing rank.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Imports neither JAX nor the JAX package.
 """
@@ -298,12 +306,13 @@ def phase_device(torch):
 
 
 def phase_build():
-    from newmsm_tpu_torch.ops import _build, icm, locate, rigid
+    from newmsm_tpu_torch.ops import _build, icm, labelmap, locate, rigid
     t0 = time.perf_counter()
-    for k in (locate, icm, rigid):
+    for k in (locate, icm, rigid, labelmap):
         k.SEAM.library()
-    print(f"build: {locate.SOURCE}, {icm.SOURCE} and {rigid.SOURCE} ready "
-          f"(nvcc at first use) in {time.perf_counter() - t0:.2f} s")
+    print(f"build: {locate.SOURCE}, {icm.SOURCE}, {rigid.SOURCE} and "
+          f"{labelmap.SOURCE} ready (nvcc at first use) in "
+          f"{time.perf_counter() - t0:.2f} s")
     name = f"{locate.KERNEL}ILi{MAIN_RES}E"
     print(f"build: ptxas, res {MAIN_RES} kernel: "
           f"{_build.ptxas_usage(locate.SOURCE, name)}")
@@ -316,6 +325,8 @@ def phase_build():
     for name in (rigid.KERNEL, "rigid_combine_kernel"):
         print(f"build: ptxas, K3 {name}: "
               f"{_build.ptxas_usage(rigid.SOURCE, name)}")
+    print(f"build: ptxas, K4 {labelmap.KERNEL}: "
+          f"{_build.ptxas_usage(labelmap.SOURCE, labelmap.KERNEL)}")
     print(f"build: grid capped at {locate.resident_blocks(MAIN_RES, 'cuda')} "
           f"resident blocks (occupancy x SMs)")
 
@@ -397,6 +408,7 @@ def phase_kernel(torch):
                                    BIG_CALL_QUERIES)
     phase_icm_kernel()
     phase_rigid_kernel()
+    phase_labelmap_kernel()
     return max(worst_pos, pos_err)
 
 
@@ -459,6 +471,38 @@ def phase_rigid_kernel():
                          f"differs from its twin: {got}")
         check(got["empty_kernel"] == got["empty_twin"],
               f"K3 {opts}: empty neighbourhoods differ from its twin's")
+
+
+def phase_labelmap_kernel():
+    """K4 against its plain version on the CPU at the data grids of the
+    gMSM levels (ops/labelmap_bench.py's tolerances)."""
+    from newmsm_tpu_torch.ops import labelmap_bench as lb
+    for res in sorted(lb.LEVELS):
+        got = lb.compare(lb.problem(res, "cpu"))
+        print(f"K4 data grid ico-{res}, {got['labels']} labels: rows "
+              f"differing {got['differing']} of {got['rows']} (share "
+              f"{got['share']:.2e}, near ties {got['near_ties']}), weight "
+              f"gap {got['w_gap']:.2e}, weights bit for bit "
+              f"{got['w_bits_equal']}")
+        check(got["ok"], f"K4 ico-{res}: differs from its twin: {got}")
+
+
+def phase_labelmap_timing():
+    """K4 a call at the data grids of the gMSM levels and the ico-6
+    template, and its plain version on the card, beside the bound of the
+    call's distances (ops/labelmap_bench.py)."""
+    from newmsm_tpu_torch.ops import labelmap_bench as lb
+    out = {}
+    for res in sorted(lb.LEVELS):
+        out[f"ico{res}"] = t = lb.time_forward(lb.problem(res, "cuda"))
+        print(f"K4 time data grid ico-{res} (L {t['labels']}, N "
+              f"{t['grid']}, Nt {t['template']}): kernel "
+              f"{t['kernel_ms']:.4f} ms a call (ms_spread "
+              f"{t['kernel_ms_spread']:.3f}), plain {t['plain_ms']:.2f} ms; "
+              f"bound {t['bound_ms']:.4f} ms by operations "
+              f"({t['distances']} distances, {t['flops']} flops), share "
+              f"{t['share']:.3f}; clock samples {t['clock_samples_mhz_w']}")
+    return out
 
 
 def phase_rigid_timing():
@@ -579,8 +623,9 @@ def span_total(events, name) -> int:
 def tallies() -> dict:
     """A copy of each kernel's tally in this process: {name: {"kernel",
     "twin", "largest"}}."""
-    from newmsm_tpu_torch.ops import icm, locate, rigid
-    return {k.SEAM.name: dict(k.SEAM.tally) for k in (locate, icm, rigid)}
+    from newmsm_tpu_torch.ops import icm, labelmap, locate, rigid
+    return {k.SEAM.name: dict(k.SEAM.tally)
+            for k in (locate, icm, rigid, labelmap)}
 
 
 def measured(torch, fn):
@@ -615,9 +660,11 @@ def check_kernels(tag, by_rank, events, move):
     the spans' `<name>.kernel` counts and no span counts `<name>.twin`;
     every rank launched K1; every rank launched K2 once a `move` mark
     (each rank runs the whole ICM) and K3 once a `cost_evals` count (none
-    on a path without AFFINE)."""
+    on a path without AFFINE); every rank launched K4 as often, and every
+    `group.maps` span counts the same K4 launches, one a subject the rank
+    owns (none on a pairwise path)."""
     for name, per in (("locate", None), ("icm", move),
-                      ("rigid", "cost_evals")):
+                      ("rigid", "cost_evals"), ("labelmap", "group.maps")):
         if name not in by_rank[0]:
             continue
         n = [t[name]["kernel"] for t in by_rank]
@@ -629,6 +676,13 @@ def check_kernels(tag, by_rank, events, move):
         if per is None:
             ok = ok and min(n) > 0
             line += f", the largest of {largest_call(by_rank)} queries"
+        elif name == "labelmap":
+            a_span = sorted({e["counters"].get("labelmap.kernel", 0)
+                             for e in events if e.get("event") == "span"
+                             and e["name"] == per})
+            line += f", a {per} span counts {a_span}"
+            ok = (ok and len(a_span) <= 1 and 0 not in a_span
+                  and all(x == n[0] for x in n))
         else:
             want = span_total(events, per)
             line += f", {per} {want}"
@@ -1187,10 +1241,12 @@ def _torchrun_group(workdir, ref, tag, backend):
           f"{[round(b / 2**30, 3) for b in ranks['peak_device_bytes']]} GiB")
     check(all(e["devices"] == 2 for e in iters),
           f"{tag}: an iter event does not read devices 2")
-    launches = [{"locate": {"kernel": n, "largest": q}, "icm": {"kernel": m}}
-                for n, q, m in zip(ranks["locate_launches"],
-                                   ranks["locate_largest"],
-                                   ranks["icm_launches"])]
+    launches = [{"locate": {"kernel": n, "largest": q}, "icm": {"kernel": m},
+                 "labelmap": {"kernel": f}}
+                for n, q, m, f in zip(ranks["locate_launches"],
+                                      ranks["locate_largest"],
+                                      ranks["icm_launches"],
+                                      ranks["labelmap_launches"])]
     check_kernels(tag, launches, events, "group.alpha")
     energies = [e["energy"] for e in iters]
     same_e = energies == ref["energies"]
@@ -1429,10 +1485,11 @@ def phase_gmsm_ranks(torch, workdir):
                   f"{same}")
             check(all(same.values()), f"{tag}: rank {r} differs from the "
                                       f"one-rank run: {same}")
-        total = launched(by_path[tag], "locate")
-        one_rank = launched(launches, "locate")
-        check(total == one_rank, f"{tag}: {total} K1 launches over the "
-                                 f"ranks, {one_rank} on one rank")
+        for name in ("locate", "labelmap"):
+            total = launched(by_path[tag], name)
+            one_rank = launched(launches, name)
+            check(total == one_rank, f"{tag}: {total} {name} launches over "
+                                     f"the ranks, {one_rank} on one rank")
     if len(backends) == 1:
         print("gmsm_ranks_nccl: not run: this machine has "
               f"{torch.cuda.device_count()} card, and NCCL refuses two ranks "
@@ -1491,7 +1548,8 @@ def main(argv=None) -> int:
     # each kernel's launches by path, summed over the ranks (the group
     # paths' ranks events do not report K3)
     launches = {name: {p: launched(r, name) for p, r in by_path.items()
-                       if name in r[0]} for name in ("locate", "icm", "rigid")}
+                       if name in r[0]}
+                for name in ("locate", "icm", "rigid", "labelmap")}
     # K2 runs on every path with a DISCRETE level; MCMC bypasses it
     for path, n in launches["icm"].items():
         check((n == 0) if path == "mcmc" else (n > 0),
@@ -1502,6 +1560,11 @@ def main(argv=None) -> int:
         check((n > 0) == (path in ("strain", "msmpair")),
               f"{path}: {n} rigid_cost launches")
     rigid_times = phase_rigid_timing()
+    # K4 runs on the group paths, and on no other
+    for path, n in launches["labelmap"].items():
+        check((n > 0) == path.startswith(("group", "gmsm")),
+              f"{path}: {n} label_forward launches")
+    labelmap_times = phase_labelmap_timing()
     # library_ms: no single PyTorch call computes point location on a
     # subdivision tree plus barycentric weights
     print(json.dumps({"kernels": [{
@@ -1527,7 +1590,12 @@ def main(argv=None) -> int:
         "source": "newmsm_tpu_torch/csrc/rigid_cost.cu", "replaces": None,
         "launches": sum(launches["rigid"].values()),
         "launches_by_path": launches["rigid"], "library_ms": None,
-        **rigid_times}]}))
+        **rigid_times}, {
+        "name": "label_forward", "route": "cuda",
+        "source": "newmsm_tpu_torch/csrc/label_forward.cu", "replaces": None,
+        "launches": sum(launches["labelmap"].values()),
+        "launches_by_path": launches["labelmap"], "bound_by": "operations",
+        "library_ms": None, **labelmap_times}]}))
     print(f"chip_smoke: whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

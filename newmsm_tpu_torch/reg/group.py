@@ -35,7 +35,7 @@ from ..core.mesh import Mesh
 from ..ops import resample as rsp
 from ..ops.nearest import build_tables
 from ..ops.unfold import unfold
-from ..ops import icm, locate
+from ..ops import icm, labelmap, locate
 from ..parallel import group_fusion as GF
 from ..parallel import multihost as mh
 from . import featurespace as fsp
@@ -203,19 +203,21 @@ class GroupMeshRegistration:
         if trace.active():
             # per rank, from the kernels' tallies: K1's launches in this
             # process and the most queries of one, the peak device memory
-            # (-1 on the CPU) and K2's launches in this process
+            # (-1 on the CPU), K2's and K4's launches in this process
             dev = self.device
             peak = torch.cuda.max_memory_allocated(dev) \
                 if dev.type == "cuda" else -1
             k1, k2 = locate.SEAM.tally, icm.SEAM.tally
             per_rank = self.comm.all_gather(torch.tensor(
-                [[k1["kernel"], k1["largest"], peak, k2["kernel"]]],
+                [[k1["kernel"], k1["largest"], peak, k2["kernel"],
+                  labelmap.SEAM.tally["kernel"]]],
                 dtype=torch.int64, device=dev))
             trace.event("ranks", devices=self.comm.world,
                         locate_launches=per_rank[:, 0].tolist(),
                         locate_largest=per_rank[:, 1].tolist(),
                         peak_device_bytes=per_rank[:, 2].tolist(),
-                        icm_launches=per_rank[:, 3].tolist())
+                        icm_launches=per_rank[:, 3].tolist(),
+                        labelmap_launches=per_rank[:, 4].tolist())
         return self.sph_reg
 
     # ---- level setup -----------------------------------------------------

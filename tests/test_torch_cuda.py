@@ -9,7 +9,9 @@ over NCCL ranks, a card each (where there are two or more), against one
 rank; the binary-ICM kernel K2 against its plain version in the three
 forms its callers pass, on synthetic and on recorded tables; and the
 rigid-cost kernel K3 against its plain version at AFFINE's shapes and at
-the edges of its arithmetic, alone and inside rigid_align. They skip
+the edges of its arithmetic, alone and inside rigid_align; and the
+label-map kernel K4 against its plain version at the last gMSM level's
+shape. They skip
 without one. The machine with the card has no JAX, so
 this file imports neither JAX nor the JAX package, and is run there
 without tests/conftest.py (which imports JAX):
@@ -257,12 +259,13 @@ def test_group_fusion_tables_are_the_same_on_cuda_and_cpu(cuda):
 
 @pytest.mark.cuda
 def test_label_deformed_maps_go_through_the_kernel(cuda):
-    """On the card every label's reverse map is one kernel launch of N
-    queries; against the plain version (the same function on the CPU): all
-    entries within 1e-3, all but 1e-3 of them within 1e-4 (the kernel's
-    ties against its twin are boundary ties, which move a ~0 weight)."""
+    """On the card the forward maps of every label are one K4 launch and
+    their reverse maps one K1 launch of L x N queries; against the plain
+    version (the same function on the CPU): all entries within 1e-3, all
+    but 1e-3 of them within 1e-4 (the kernels' ties against their twins
+    are boundary ties, which move a ~0 weight)."""
     from newmsm_tpu_torch.eval.synth import smooth_sphere_warp
-    from newmsm_tpu_torch.ops import locate, resample as rsp
+    from newmsm_tpu_torch.ops import labelmap, locate, resample as rsp
     from newmsm_tpu_torch.ops.nearest import build_tables
     from newmsm_tpu_torch.reg.sampling_grid import build_sampling_grid
     res = 4
@@ -280,18 +283,60 @@ def test_label_deformed_maps_go_through_the_kernel(cuda):
         tabs = build_tables(dg.coords, dg.faces, tri_idx, dev)
         ttm = build_tables(tm.coords, tm.faces, tm.adjacency[2], dev)
         assert ttm.pristine_res == res
-        before = locate.SEAM.tally["kernel"]
+        before = (locate.SEAM.tally["kernel"], labelmap.SEAM.tally["kernel"])
         got[dev.type] = rsp.label_deformed_maps(
             f32(warped), f32(data), tabs.faces,
             torch.as_tensor(tri_idx.astype(np.int64)).to(dev),
             tabs.ring_faces, tabs.ring_verts, f32(sg.samples), f32(sg.centre),
             ttm, f32(tm.vertex_area()),
             cap=rsp._adaptive_cap(dg.nvertices, tm.nvertices)).cpu().numpy()
-        launched = locate.SEAM.tally["kernel"] - before
-        assert launched == (len(sg.samples) if dev.type == "cuda" else 0)
+        launched = (locate.SEAM.tally["kernel"] - before[0],
+                    labelmap.SEAM.tally["kernel"] - before[1])
+        assert launched == ((1, 1) if dev.type == "cuda" else (0, 0))
     err = np.abs(got["cuda"] - got["cpu"])
     assert err.max() < 1e-3, err.max()
     assert (err > 1e-4).mean() <= 1e-3, (err > 1e-4).sum()
+
+
+@pytest.mark.cuda
+def test_label_forward_kernel_matches_its_twin_at_ico6(cuda):
+    """K4 on a warped ico-6 data grid with its 18 labels (CP ico-4, SG 6)
+    and the ico-6 template, against the plain version on the CPU from the
+    same grids (every label, every 7th template vertex): the same triangle
+    on every row but at most 1e-4 of them, each a near tie of exact
+    distances; the weights of the other rows within 1e-6
+    (ops/labelmap_bench.py). Two launches give the same bits."""
+    from newmsm_tpu_torch.ops import labelmap, labelmap_bench as lb
+    p = lb.problem(6, "cpu")
+    got = lb.compare(p)
+    print(f"K4 ico-6: {got}")
+    assert got["labels"] == 18
+    assert got["ok"], got
+    on_card = tuple(t.to(cuda) for t in p)
+    one, two = labelmap.label_forward(*on_card), labelmap.label_forward(
+        *on_card)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.cuda
+def test_label_forward_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from newmsm_tpu_torch.ops import labelmap, labelmap_bench as lb
+    grids, faces, ring_faces, ring_verts, tmpl = lb.problem(4, cuda)
+    with pytest.raises(TypeError):
+        labelmap.label_forward(grids.double(), faces, ring_faces, ring_verts,
+                               tmpl)
+    with pytest.raises(TypeError):
+        labelmap.label_forward(grids, faces, ring_faces,
+                               ring_verts.int(), tmpl)
+    with pytest.raises(ValueError):
+        labelmap.label_forward(grids[:, ::2], faces, ring_faces, ring_verts,
+                               tmpl)
+    with pytest.raises(ValueError):
+        labelmap.label_forward(grids, faces, ring_faces, ring_verts[:-1],
+                               tmpl)
+    with pytest.raises(ValueError):
+        labelmap.label_forward(grids, faces, ring_faces, ring_verts,
+                               tmpl.cpu())
 
 
 def _sharded_fusion_on_card(S, exchange):

@@ -199,6 +199,115 @@ def test_label_deformed_maps_matches_on_a_warped_grid():
     assert (err > 1e-4).mean() <= 1e-3, (err > 1e-4).sum()
 
 
+@pytest.fixture
+def one_thread():
+    """One CPU thread: above its grain size the CPU's
+    index_put_(accumulate=True) sums duplicates in an order that follows
+    the thread count (its CUDA version sorts, stably, whatever the size),
+    so a batched call is compared with per-label calls at one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _warped_level(res):
+    """A warped ico-`res` data grid (numpy Mesh of the port), its tables and
+    2 random-normal channels, and a pristine template one level coarser
+    (no face ties; cap > 16, so rows take the reverse map too) on the CPU."""
+    dg = TMesh.from_icosphere(res)
+    dg.coords = np.asarray(warped_icosphere(res, seed=3, deg=4.0).coords)
+    tm = TMesh.from_icosphere(res - 1)
+    tm.true_rescale(100.0)
+    data = np.random.default_rng(0).normal(
+        size=(2, dg.nvertices)).astype(np.float32)
+    return (dg, tnst.build_tables(dg.coords, dg.faces, dg.adjacency[2], "cpu"),
+            tm, tnst.build_tables(tm.coords, tm.faces, tm.adjacency[2], "cpu"),
+            data)
+
+
+@pytest.mark.parametrize("res", [3, 4])
+@pytest.mark.parametrize("L", [1, 7, 19])
+def test_batched_label_maps_are_the_single_label_calls(one_thread, res, L):
+    """label_deformed_maps of L labels at once (the twin route: one
+    labelmap.twin call, one reverse map, one adaptive_combine) equals bit
+    for bit the stack of its L single-label calls."""
+    dg, tabs, tm, ttm, data = _warped_level(res)
+    _, labels, centre = _label_grid()
+    labels = labels[:L]
+    assert len(labels) == L
+    args = (T(dg.coords), T(data), tabs.faces,
+            torch.as_tensor(dg.adjacency[2].astype(np.int64)),
+            tabs.ring_faces, tabs.ring_verts)
+    rest = (T(centre), ttm, T(tm.vertex_area()))
+    cap = trsp._adaptive_cap(dg.nvertices, tm.nvertices)
+    got = trsp.label_deformed_maps(*args, T(labels), *rest, cap=cap)
+    want = torch.stack([trsp.label_deformed_maps(
+        *args, T(labels[l:l + 1]), *rest, cap=cap)[0] for l in range(L)])
+    assert got.shape == (L, 2, tm.nvertices)
+    assert torch.equal(got, want)
+
+
+def test_adaptive_weights_on_a_label_axis_are_its_per_label_calls(
+        one_thread):
+    """adaptive_combine over 5 label-deformed ico-4 grids at once, with an
+    exclusion gate, equals bit for bit adaptive_weights a grid at a time
+    (its forward and reverse maps, gate and combination on a label axis of
+    one)."""
+    from newmsm_tpu_torch.ops.labelmap import deformed_grids
+    dg, tabs, tm, ttm, _ = _warped_level(4)
+    _, labels, centre = _label_grid()
+    grids = deformed_grids(T(dg.coords), T(labels[::4]), T(centre))
+    excl = T(np.random.default_rng(1).random(dg.nvertices) > 0.2)
+    low, low_va = ttm.coords, T(tm.vertex_area())
+    tri_idx = torch.as_tensor(dg.adjacency[2].astype(np.int64))
+    in_va = trsp.vertex_areas_kernel(grids, tabs.faces, tri_idx)
+    cap = trsp._adaptive_cap(dg.nvertices, tm.nvertices)
+    per, fwd, rev, gate = [], [], [], []
+    for g, va in zip(grids, in_va):
+        t = tnst.SearchTables(coords=g, faces=tabs.faces,
+                              ring_faces=tabs.ring_faces,
+                              ring_verts=tabs.ring_verts)
+        per.append(trsp.adaptive_weights(g, low, t, ttm, va, low_va, excl,
+                                         cap=cap))
+        fwd.append(tnst.barycentric_coords(low, t))
+        rev.append(tnst.barycentric_coords(g, ttm))
+        gate.append(excl[tnst.closest_vertex(low, t)] != 0)
+    idx, w = trsp.adaptive_combine(
+        *(torch.stack(x) for x in zip(*fwd)),
+        *(torch.stack(x) for x in zip(*rev)), in_va, low_va,
+        torch.stack(gate), cap=cap)
+    assert not torch.stack(gate).all()
+    assert torch.equal(idx, torch.stack([i for i, _ in per]))
+    assert torch.equal(w, torch.stack([x for _, x in per]))
+
+
+def test_traced_group_run_counts_one_labelmap_call_a_subject_a_maps_span(
+        tmp_path):
+    """A traced 3-subject ico-3 group run on the CPU: every `group.maps`
+    span counts one labelmap.twin call a subject (one rank owns all three)
+    and no labelmap.kernel, with labelmap.labels L a call and
+    labelmap.queries L x Nt."""
+    meshes, datasets = make_group(3)
+    template = rotated_template()
+    g = TGroup(device="cpu")
+    g.set_inputs([convert.mesh(m) for m in meshes])
+    g.set_data_list([d.copy() for d in datasets])
+    g.set_template(convert.mesh(template))
+    g.outdir = str(tmp_path / "t_")
+    g.metrics_path = g.outdir + "metrics.jsonl"
+    g.run_multiresolutions(torch_config(group_config(iters=2)))
+    spans = [e for e in map(json.loads, open(g.metrics_path))
+             if e["event"] == "span" and e["name"] == "group.maps"]
+    L = len(_label_grid()[1])
+    assert len(spans) == 2
+    for s in spans:
+        c = s["counters"]
+        assert c["labelmap.twin"] == 3 and "labelmap.kernel" not in c, c
+        assert c["labelmap.labels"] == 3 * L, c
+        assert c["labelmap.queries"] == 3 * L * template.nvertices, c
+
+
 # ------------------------------------------------------------ group problem
 
 def build_problem(S, seed=0, D=2, simval=2, masked=False, cprange=1.0):

@@ -355,30 +355,42 @@ def _span(counters):
     return {"event": "span", "name": "fusion", "counters": counters}
 
 
-def _ranks(icm_launches, locate=(7,), rigid=(4,)):
-    return [{"locate": {"kernel": n, "twin": 0, "largest": 9},
-             "icm": {"kernel": m, "twin": 0, "largest": 9},
-             "rigid": {"kernel": r, "twin": 0, "largest": 9}}
-            for n, m, r in zip(locate * len(icm_launches), icm_launches,
-                               rigid * len(icm_launches))]
+def _ranks(icm_launches, locate=(7,), rigid=(4,), labelmap=(2,)):
+    n = len(icm_launches)
+    return [{"locate": {"kernel": k1, "twin": 0, "largest": 9},
+             "icm": {"kernel": k2, "twin": 0, "largest": 9},
+             "rigid": {"kernel": k3, "twin": 0, "largest": 9},
+             "labelmap": {"kernel": k4, "twin": 0, "largest": 9}}
+            for k1, k2, k3, k4 in zip(locate * n, icm_launches, rigid * n,
+                                      labelmap * n)]
 
 
 @pytest.mark.parametrize("case", ["one_rank", "by_rank", "short_rank",
                                   "twin", "no_kernel_count", "k1_count",
-                                  "k1_twin", "k3_short"])
+                                  "k1_twin", "k3_short", "k4_count",
+                                  "k4_twin", "k4_uneven_spans"])
 def test_chip_smoke_holds_each_path_to_one_launch_a_move(case):
     """chip_smoke.check_kernels: each rank's K2 launches equal the run's
     move marks, the spans count as many `icm.kernel` and no `icm.twin`;
     rank 0's K1 launches equal the `locate.kernel` counts, with no
-    `locate.twin`; K3 launches once a `cost_evals` count; anything else
-    fails the smoke run."""
+    `locate.twin`; K3 launches once a `cost_evals` count; K4 launches
+    equal the `labelmap.kernel` counts, the same in every `group.maps`
+    span, with no `labelmap.twin`; anything else fails the smoke run."""
     import chip_smoke
+    maps = [1, 0 if case == "k4_uneven_spans" else 1]
     events = [{"event": "iter"},
               _span({"fusion.move": {"n": 3, "s": 0.1}, "icm.kernel": 3,
                      "locate.kernel": 4, "cost_evals": 4,
                      "rigid.kernel": 4}),
               _span({"fusion.move": {"n": 2, "s": 0.1}, "icm.kernel": 2,
                      "locate.kernel": 3})]
+    events += [{"event": "span", "name": "group.maps",
+                "counters": {"labelmap.kernel": m} if m else {}}
+               for m in maps]
+    if case == "k4_uneven_spans":
+        events[-2]["counters"]["labelmap.kernel"] = 2
+    if case == "k4_twin":
+        events.append(_span({"labelmap.twin": 1}))
     launches = {"one_rank": [5], "by_rank": [5, 5],
                 "short_rank": [5, 4]}.get(case, [5])
     if case == "twin":
@@ -388,7 +400,8 @@ def test_chip_smoke_holds_each_path_to_one_launch_a_move(case):
     if case == "k1_twin":
         events.append(_span({"locate.twin": 1}))
     ranks = _ranks(launches, locate=(8 if case == "k1_count" else 7,),
-                   rigid=(3 if case == "k3_short" else 4,))
+                   rigid=(3 if case == "k3_short" else 4,),
+                   labelmap=(3 if case == "k4_count" else 2,))
     assert chip_smoke.span_total(events, "fusion.move") == 5
     if case in ("one_rank", "by_rank"):
         chip_smoke.check_kernels("path", ranks, events, "fusion.move")
